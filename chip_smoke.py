@@ -3,26 +3,41 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — polyhedral program, index graph, wavefront
-schedule, counted-sync sweeps on the card, fused stencil tiles — at the
-size of the reference's acceptance runs (jacobi2d, tiles (2,2,2),
-T=32, N=512: 1,056,784 tasks), and checks every result:
+Drives the port's main paths and checks every result.  The EDT path:
+polyhedral program, index graph, wavefront schedule, counted-sync sweeps
+on the card and fused stencil tiles, at the size of the reference's
+acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks).
+The serving path: llama3.2-1b and rwkv6-1.6b at full width, f32 weights
+drawn from a seed.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of the CUDA kernel from ``src/repro_torch/csrc`` and its time;
-3. the kernel against its plain torch version on the card, byte for byte,
-   on every frontier of a real discover sweep, on an edgeless graph, an
-   empty frontier and a seeded random DAG;
+2. the build of the three CUDA kernels from ``src/repro_torch/csrc``, one
+   ``nvcc`` each, all started together, and their times;
+3. ``wavefront_step`` against its plain torch version on the card, byte
+   for byte, on every frontier of a real discover sweep, on an edgeless
+   graph, an empty frontier and a seeded random DAG;
 4. ``DeviceExecutor`` discover: ``level_of`` byte-identical to the host
    schedule, and one kernel launch per level;
 5. ``DeviceExecutor`` replay, and a corrupted schedule refused;
 6. ``FusedExecutor`` replay and discover in float32 against the torch
    ``handwritten_solve`` and the NumPy ``reference_solve``, and in float64
    at small sizes;
-7. phase times, a ``kernels`` JSON line with each kernel's launches on the
-   main path (phases 4-6), its agreement with its plain version, its time
-   (CUDA events, median), the plain version's time and the least time the
-   card could take for the same work.
+7. EDT phase times, the wavefront kernel's times and a profile per sweep;
+8. flash attention and WKV6 against their plain torch versions on the
+   card, in f32 and bf16, at the reference's test shapes and at the
+   serving path's shapes;
+9. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
+   kernel (one launch a layer) against the same step on the plain chunked
+   attention; the serve loop (B=4, prompt 512, 32 tokens); incremental
+   decode against the full forward;
+10. rwkv6-1.6b: the serve loop at the same sizes (one WKV6 launch a layer
+    in prefill); prefill logits and every layer's final state against the
+    plain recurrence; incremental decode against the full forward;
+11. kernel times (CUDA events, median, warm; flash also with L2 flushed),
+    plain-version times, the time of one PyTorch call computing the same
+    function where there is one, the least time the card could take, and
+    a ``kernels`` JSON line with each kernel's launches on its main path
+    (counts set to 0 just before that path and read just after).
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -31,6 +46,9 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -54,8 +72,48 @@ CASES = [
 F32_TOL = dict(rtol=1e-4, atol=1e-5)    # the reference's at-scale tolerance
 F64_TOL = dict(rtol=1e-12, atol=1e-13)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM device memory rate
+F32_FLOP_PER_S = 67e12                  # H100 SXM f32 outside tensor cores
 REPS, INNER = 25, 20                    # timing: medians of 25 x 20 launches
 SLEEP_CYCLES = 20_000_000               # ~10 ms of device sleep, a head start
+KERNELS = ("wavefront_step", "flash_attention", "wkv6")
+
+# ------------------------------------------------------- the serving path
+LLAMA, RWKV = "llama3.2-1b", "rwkv6-1.6b"
+PREFILL_B, PREFILL_S = 2, 4096          # make_prefill_step, flash on path
+SERVE_B, SERVE_LP, SERVE_G = 4, 512, 32  # the serve loop
+#: flash cases (B, H, Hkv, Sq, Skv, D, causal): tests/test_kernels.py's
+#: shapes, then llama3.2-1b's prefill layer and a non-causal Sq != Skv
+FLASH_CASES = [
+    (1, 2, 2, 128, 128, 64, True), (2, 4, 2, 256, 256, 64, True),
+    (1, 3, 1, 384, 384, 128, True), (1, 2, 2, 128, 256, 64, False),
+    (2, 32, 8, 4096, 4096, 64, True), (2, 32, 8, 512, 2048, 64, False),
+]
+FLASH_PATH = FLASH_CASES[4]
+#: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
+#: shapes, then rwkv6-1.6b's serve prefill with and without a state
+WKV_CASES = [
+    (1, 32, 1, 8, False), (2, 64, 2, 16, False), (1, 128, 2, 64, False),
+    (4, 512, 32, 64, False), (4, 512, 32, 64, True),
+]
+WKV_PATH = WKV_CASES[4]
+#: Kernel vs plain version, both computing in f32 from the same inputs:
+#: f32 outputs differ only in summation order (the reference's TOL in
+#: tests/test_kernels.py, 2e-4).  bf16 outputs are one rounding of those
+#: f32 values, so they differ by at most one bf16 ulp, at most 2^-7 =
+#: 7.8e-3 of the value: rtol 8e-3, and atol 1e-3 for outputs near zero.
+#: The reference's bf16 TOL of 2e-2 is as large as a typical output of a
+#: long causal row (about 0.03 at S=4096) and stays with the CPU tests
+#: against the Pallas interpreter.  WKV6's final state is f32 arithmetic
+#: on the same (widened) inputs in both dtypes: the reference's f32 1e-3.
+KERNEL_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+              "bfloat16": dict(rtol=8e-3, atol=1e-3)}
+STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+#: Two f32 routes of one full-width model (kernel vs plain attention or
+#: recurrence, prefill-with-cache plus decode vs one full forward): the
+#: same arithmetic summed in other orders through 16-24 layers.  The
+#: reference's own tolerance for two routes of one model
+#: (tests/test_arch_smoke.py:72-74).
+MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
 
 
 def log(msg: str) -> None:
@@ -72,8 +130,8 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def event_ms(fn, flush=None) -> float:
-    """Device time of one call: median over REPS of INNER-call means.
+def event_ms(fn, flush=None, reps: int = REPS, inner: int = INNER) -> float:
+    """Device time of one call: median over ``reps`` of ``inner``-call means.
 
     A device-side sleep is queued first, so the host has enqueued every
     call before the card reaches the start event, and the events time the
@@ -83,24 +141,24 @@ def event_ms(fn, flush=None) -> float:
     import torch
 
     samples = []
-    for _ in range(REPS + 2):
+    for _ in range(reps + 2):
         torch.cuda._sleep(SLEEP_CYCLES)
         ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(2 * INNER if flush is not None else 2)]
+              for _ in range(2 * inner if flush is not None else 2)]
         if flush is None:
             ev[0].record()
-            for _ in range(INNER):
+            for _ in range(inner):
                 fn()
             ev[1].record()
         else:
-            for i in range(INNER):
+            for i in range(inner):
                 flush.add_(1)
                 ev[2 * i].record()
                 fn()
                 ev[2 * i + 1].record()
         torch.cuda.synchronize()
         samples.append(sum(ev[i].elapsed_time(ev[i + 1])
-                           for i in range(0, len(ev), 2)) / INNER)
+                           for i in range(0, len(ev), 2)) / inner)
     return statistics.median(samples[2:])
 
 
@@ -143,14 +201,11 @@ def device_profile(fn):
     return wall, busy, count, top
 
 
-def main() -> int:
+def edt_path(dev, card) -> dict:
+    """Phases 3 to 7, the EDT path.  Returns the wavefront kernel's record
+    (its launches counted over phases 4 to 6)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script runs only on "
-              "a GPU", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.edt import (DeviceExecutor, FusedExecutor,
                                       IndexedGraph, IndexedSchedule,
                                       ScheduleValidationError,
@@ -160,29 +215,9 @@ def main() -> int:
                                              wavefront_step_torch)
     from repro_torch.core.poly import Tiling
     from repro_torch.core.programs import PROGRAMS
-    from repro_torch.kernels import build
     from repro_torch.kernels.stencils import (SPECS, default_state,
                                               handwritten_solve,
                                               reference_solve)
-
-    dev = torch.device("cuda")
-    # ---------------------------------------------------------- 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0].strip()
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
-
-    # ------------------------------------------------------------ 2. build
-    t0 = time.perf_counter()
-    lib_path = build.compile_library("wavefront_step")
-    build.load("wavefront_step")
-    log(f"phase 2 build: {lib_path.name} in "
-        f"{time.perf_counter() - t0:.3f} s")
 
     # ------------------------------------------------------- host graph
     name, tiles, params = SLICE
@@ -391,7 +426,7 @@ def main() -> int:
         log(f"profile {label}: wall {wall:.3f} s under the profiler, device "
             f"busy {busy:.4f} s ({100 * busy / wall:.1f}%) in {count} "
             f"kernels; top (name, ms): {top}")
-    log(json.dumps({"kernels": [{
+    return {
         "name": "wavefront_step", "route": "cuda",
         "source": "src/repro_torch/csrc/wavefront_step.cu",
         "replaces": "src/repro/core/edt/device.py:225",
@@ -400,7 +435,422 @@ def main() -> int:
         "ms": step_ms, "ms_cold_l2": step_cold_ms, "plain_ms": plain_ms,
         "host_us": step_host_us,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-    }]}))
+    }
+
+
+def check_kernels(dev) -> dict:
+    """Phase 8: both serving kernels against their plain versions on the
+    card.  Returns the max abs error at each kernel's path shape (f32)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_hm,
+                                                     flash_attention_hm_torch)
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_torch
+
+    gen = torch.Generator(dev).manual_seed(20261017)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def compare(got, want, tol, what):
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), **tol,
+                                   msg=lambda m: f"{what}: {m}")
+        return err
+
+    path_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[1]
+        errs = []
+        for case in FLASH_CASES:
+            B, H, Hkv, Sq, Skv, D, causal = case
+            q = randn(B, H, Sq, D, dtype=dtype)
+            k, v = (randn(B, Hkv, Skv, D, dtype=dtype) for _ in range(2))
+            got = flash_attention_hm(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            want = flash_attention_hm_torch(q, k, v, causal=causal)
+            err = compare(got, want, KERNEL_TOL[tname], f"flash {tname} {case}")
+            errs.append(err)
+            if case == FLASH_PATH and dtype == torch.float32:
+                path_err["flash_attention_hm"] = err
+        log(f"phase 8 flash_attention {tname} == plain version at "
+            f"{len(FLASH_CASES)} shapes (B,H,Hkv,Sq,Skv,D,causal) "
+            f"{FLASH_CASES}: max abs err {[f'{e:.3e}' for e in errs]} "
+            f"(tol {KERNEL_TOL[tname]})")
+        errs, st_errs = [], []
+        # bf16 streams also with an f32 decay, as the RWKV6 layer makes it
+        wdtypes = (dtype,) if dtype == torch.float32 else (dtype, torch.float32)
+        for case in WKV_CASES:
+            B, S, H, D, with_state = case
+            for wdtype in wdtypes:
+                r, k, v = (randn(B, S, H, D, dtype=dtype) for _ in range(3))
+                w = torch.sigmoid(randn(B, S, H, D) - 1.0).to(wdtype)
+                u = 0.1 * randn(H, D)
+                s0 = randn(B, H, D, D) if with_state else None
+                out, st = wkv6(r, k, v, w, u, s0)
+                torch.cuda.synchronize()
+                want, want_st = wkv6_torch(r, k, v, w, u, s0)
+                what = f"wkv6 {tname} w {wdtype} {case}"
+                err = compare(out, want, KERNEL_TOL[tname], what)
+                st_errs.append(compare(st, want_st, STATE_TOL,
+                                       what + " state"))
+                errs.append(err)
+                if case == WKV_PATH and dtype == torch.float32:
+                    path_err["wkv6"] = err
+        log(f"phase 8 wkv6 {tname} == plain version at {len(WKV_CASES)} "
+            f"shapes (B,S,H,D,init_state) {WKV_CASES}"
+            f"{' (w bf16 and f32)' if len(wdtypes) > 1 else ''}: max abs "
+            f"err {[f'{e:.3e}' for e in errs]} (tol {KERNEL_TOL[tname]}), "
+            f"state {[f'{e:.3e}' for e in st_errs]} (tol {STATE_TOL})")
+    return path_err
+
+
+@contextlib.contextmanager
+def plain_refused(module, name: str):
+    """``module.name`` (a kernel's plain version) raises while inside: a
+    main path on CUDA tensors must launch the kernel, never fall back."""
+    saved = getattr(module, name)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"{name} was reached on a CUDA main path")
+
+    setattr(module, name, refuse)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def decode_profile(model, params, prompts, label: str) -> None:
+    """One decode step after a prefill, under the profiler."""
+    import torch
+
+    caches = model.init_cache(SERVE_B, SERVE_LP + SERVE_G + 1, torch.float32,
+                              prompts.device)
+    logits, caches = model.forward(params, prompts, caches=caches)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+    model.decode_step(params, tok, caches, SERVE_LP)          # warm
+    wall, busy, count, top = device_profile(
+        lambda: model.decode_step(params, tok, caches, SERVE_LP))
+    log(f"profile {label} decode step (B={SERVE_B}, cache "
+        f"{SERVE_LP + SERVE_G + 1}): wall {wall * 1e3:.2f} ms under the "
+        f"profiler, device busy {busy * 1e3:.2f} ms "
+        f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
+        f"{top}")
+
+
+def free_model(label: str) -> None:
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"{label}: peak device memory {torch.cuda.max_memory_allocated()} "
+        f"bytes ({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def teacher_forced(model_xla, params, prompts, res, label: str) -> float:
+    """Incremental decode (the serve loop's per-step logits) against one
+    full forward over the prompt and the generated tokens."""
+    import torch
+
+    seq = torch.cat([prompts, res.tokens[:, :-1]], dim=1)
+    full, _ = model_xla.forward(params, seq)
+    want = full[:, SERVE_LP - 1:]
+    got = torch.stack(res.logits, dim=1)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: decode logits {tuple(got.shape)}, "
+                             f"want {tuple(want.shape)}, finite")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **MODEL_TOL,
+                               msg=lambda m: f"{label} teacher-forced: {m}")
+    return err
+
+
+def serve_line(label: str, res, t_first: float) -> str:
+    return (f"{label} serve B={SERVE_B} prompt {SERVE_LP} gen {SERVE_G}: "
+            f"prefill {res.prefill_s * 1e3:.2f} ms (first run "
+            f"{t_first * 1e3:.2f} ms), {SERVE_B * SERVE_LP / res.prefill_s:.0f}"
+            f" prompt tok/s; decode {res.decode_s_per_step * 1e3:.3f} "
+            f"ms/step, {SERVE_B / res.decode_s_per_step:.1f} tok/s")
+
+
+def llama_path(dev) -> int:
+    """Phase 9: llama3.2-1b at full width.  Returns the flash launches of
+    one ``make_prefill_step`` call (counts set to 0 just before it)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    cfg = get_config(LLAMA)
+    cfg_cuda, cfg_xla = (cfg.replace(attn_impl=a) for a in ("cuda", "xla"))
+    gen = torch.Generator(dev).manual_seed(0)
+    params = build_model(cfg_cuda).init(gen, torch.float32, dev)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), device=dev,
+                           generator=gen)
+    step_cuda = make_prefill_step(build_model(cfg_cuda))
+    step_xla = make_prefill_step(build_model(cfg_xla))
+
+    flash_attention_hm.launches = 0
+    with plain_refused(fa_mod, "flash_attention_hm_torch"):
+        got, t_cuda = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    launches = flash_attention_hm.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} flash launches in a prefill step "
+                             f"of {cfg.n_layers} layers")
+    want, t_xla = timed(lambda: step_xla(params, {"tokens": tokens}))
+    if got.shape != (PREFILL_B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **MODEL_TOL,
+                               msg=lambda m: f"llama prefill cuda vs xla: {m}")
+    _, t_cuda_warm = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    _, t_xla_warm = timed(lambda: step_xla(params, {"tokens": tokens}))
+    del got, want
+    wall, busy, count, top = device_profile(
+        lambda: step_cuda(params, {"tokens": tokens}))
+    log(f"profile {LLAMA} make_prefill_step cuda: wall {wall * 1e3:.1f} ms "
+        f"under the profiler, device busy {busy * 1e3:.1f} ms "
+        f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
+        f"{top}")
+    log(f"phase 9 {LLAMA} ({cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, f32) make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
+        f"{launches} flash launches; last-position logits cuda vs xla max "
+        f"abs {err:.3e} (tol {MODEL_TOL}); step {t_cuda_warm * 1e3:.1f} ms "
+        f"cuda, {t_xla_warm * 1e3:.1f} ms xla (first runs "
+        f"{t_cuda * 1e3:.1f} / {t_xla * 1e3:.1f} ms)")
+
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
+                            generator=gen)
+    first = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                  prompts=prompts)
+    res = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                prompts=prompts)
+    if not torch.equal(res.tokens, first.tokens):
+        raise AssertionError("two serve runs of one prompt differ")
+    tf_err = teacher_forced(build_model(cfg_xla), params, prompts, res, LLAMA)
+    log(f"phase 9 {serve_line(LLAMA, res, first.prefill_s)}; teacher-forced "
+        f"decode vs full forward max abs {tf_err:.3e} (tol {MODEL_TOL}); "
+        f"sample ids {res.tokens[0, :8].tolist()}")
+    decode_profile(build_model(cfg_cuda), params, prompts, LLAMA)
+    del params, first, res
+    free_model(f"phase 9 {LLAMA}")
+    return launches
+
+
+def rwkv_path(dev) -> int:
+    """Phase 10: rwkv6-1.6b at full width.  Returns the WKV6 launches of
+    one serve run (counts set to 0 just before it)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wkv6 as wkv6_mod
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(RWKV)
+    cfg_cuda, cfg_xla = (cfg.replace(attn_impl=a) for a in ("cuda", "xla"))
+    m_cuda, m_xla = build_model(cfg_cuda), build_model(cfg_xla)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = m_cuda.init(gen, torch.float32, dev)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
+                            generator=gen)
+    first = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                  prompts=prompts)
+    wkv6.launches = 0
+    with plain_refused(wkv6_mod, "wkv6_torch"):
+        res = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                    prompts=prompts)
+    launches = wkv6.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} wkv6 launches in a serve run of "
+                             f"{cfg.n_layers} layers")
+    if not torch.equal(res.tokens, first.tokens):
+        raise AssertionError("two serve runs of one prompt differ")
+
+    def prefill(model):
+        caches = model.init_cache(SERVE_B, SERVE_LP + SERVE_G + 1,
+                                  torch.float32, dev)
+        return timed(lambda: model.forward(params, prompts, caches=caches))
+
+    (lg_c, c_c), t_c = prefill(m_cuda)
+    (lg_x, c_x), t_x = prefill(m_xla)
+    err = float((lg_c - lg_x).abs().max())
+    torch.testing.assert_close(lg_c, lg_x, **MODEL_TOL,
+                               msg=lambda m: f"rwkv prefill cuda vs xla: {m}")
+    st_err = 0.0
+    for i in range(cfg.n_layers):
+        a, b = c_c["tm"]["wkv"][i], c_x["tm"]["wkv"][i]
+        st_err = max(st_err, float((a - b).abs().max()))
+        torch.testing.assert_close(
+            a, b, **STATE_TOL,
+            msg=lambda m, i=i: f"rwkv layer {i} wkv state: {m}")
+    del lg_c, lg_x, c_c, c_x
+    tf_err = teacher_forced(m_xla, params, prompts, res, RWKV)
+    log(f"phase 10 {RWKV} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv.head_dim} heads of {cfg.rwkv.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, f32): {launches} wkv6 "
+        f"launches in a serve run; prefill logits cuda vs xla max abs "
+        f"{err:.3e} (tol {MODEL_TOL}), all {cfg.n_layers} final wkv states "
+        f"max abs {st_err:.3e} (tol {STATE_TOL}); prefill with "
+        f"cache {t_c * 1e3:.1f} ms cuda, {t_x * 1e3:.1f} ms xla")
+    log(f"phase 10 {serve_line(RWKV, res, first.prefill_s)}; teacher-forced "
+        f"decode vs full forward max abs {tf_err:.3e} (tol {MODEL_TOL}); "
+        f"sample ids {res.tokens[0, :8].tolist()}")
+    wall, busy, count, top = device_profile(lambda: prefill(m_cuda))
+    log(f"profile {RWKV} prefill with cache, cuda: wall {wall * 1e3:.1f} ms "
+        f"under the profiler, device busy {busy * 1e3:.1f} ms "
+        f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
+        f"{top}")
+    decode_profile(m_cuda, params, prompts, RWKV)
+    del params, first, res
+    free_model(f"phase 10 {RWKV}")
+    return launches
+
+
+def serving_kernel_records(dev, launches: dict, path_err: dict) -> list:
+    """Phase 11: times and bounds of the two serving kernels at their path
+    shapes, in f32 as the serving path runs them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_hm,
+                                                     flash_attention_hm_torch)
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_torch
+
+    gen = torch.Generator(dev).manual_seed(7)
+    B, H, Hkv, S, _, D, _ = FLASH_PATH
+    q = torch.randn((B, H, S, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+            for _ in range(2))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    fa = {
+        "ms": event_ms(lambda: flash_attention_hm(q, k, v), reps=7, inner=5),
+        "ms_cold_l2": event_ms(lambda: flash_attention_hm(q, k, v),
+                               flush=flush, reps=7, inner=5),
+        "plain_ms": event_ms(lambda: flash_attention_hm_torch(q, k, v),
+                             reps=5, inner=2),
+        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=7, inner=5),
+    }
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    fa["ms_bf16"] = event_ms(lambda: flash_attention_hm(qb, kb, vb), reps=7,
+                             inner=5)
+    fa["library_ms_bf16"] = event_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, is_causal=True, enable_gqa=True), reps=7, inner=5)
+    fa_q, fa_kv = q.shape, k.shape
+    del q, k, v, qb, kb, vb
+    flops = 4 * B * H * D * S * (S + 1) // 2           # causal QK^T and PV
+    nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+    fa_bound = (flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+
+    B, S, H, D, _ = WKV_PATH
+    r, kk, vv = (torch.randn((B, S, H, D), generator=gen, device=dev)
+                 for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, H, D), generator=gen, device=dev))
+    u = 0.1 * torch.randn((H, D), generator=gen, device=dev)
+    s0 = torch.zeros((B, H, D, D), device=dev)   # a fresh serve cache's
+    wk = {
+        "ms": event_ms(lambda: wkv6(r, kk, vv, w, u, s0), reps=15, inner=10),
+        "ms_cold_l2": event_ms(lambda: wkv6(r, kk, vv, w, u, s0),
+                               flush=flush, reps=15, inner=10),
+        "plain_ms": event_ms(lambda: wkv6_torch(r, kk, vv, w, u, s0),
+                             reps=5, inner=2),
+        "library_ms": None,
+    }
+    del flush
+    # r . S, k v and the decay a (step, d, e); r u k summed and v * bonus
+    # added a (step, d)
+    wops = 5 * B * S * H * D * (D + 1)
+    wbytes = 4 * (5 * B * S * H * D + H * D + 2 * B * H * D * D)
+    wk_bound = (wops / F32_FLOP_PER_S, wbytes / HBM_BYTES_PER_S)
+
+    recs = []
+    for name, src, ref, t, (ops_s, bytes_s), extra in (
+            ("flash_attention_hm", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:76", fa, fa_bound,
+             {"shape": f"q {list(fa_q)} k/v {list(fa_kv)} f32 causal",
+              "flops": flops, "bytes": nbytes}),
+            ("wkv6", "src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6.py:62", wk, wk_bound,
+             {"shape": f"r/k/v/w {list(r.shape)} f32, init_state "
+                       f"{list(s0.shape)}", "flops": wops, "bytes": wbytes})):
+        recs.append({
+            "name": name, "route": "cuda", "source": src, "replaces": ref,
+            "launches": launches[name], "matched": True,
+            "max_abs_err": path_err[name],
+            **t, "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            **extra})
+        log(f"phase 11 {name} ({extra['shape']}): kernel {t['ms']:.4f} ms "
+            f"(cold L2 {t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} "
+            f"ms, library {t['library_ms']}, bound "
+            f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({extra['flops']} flop at "
+            f"67 TFLOP/s: {ops_s * 1e3:.4f} ms; {extra['bytes']} bytes at "
+            f"3.35 TB/s: {bytes_s * 1e3:.4f} ms)")
+    log(f"phase 11 flash bf16: kernel {fa['ms_bf16']:.4f} ms, "
+        f"scaled_dot_product_attention bf16 {fa['library_ms_bf16']:.4f} ms")
+    return recs
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs only on "
+              "a GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    # full f32 products, as the reference's f32 tolerances assume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    # ---------------------------------------------------------- 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0].strip()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+
+    # ------------------------------------------------------------ 2. build
+    def build_one(name):
+        t0 = time.perf_counter()
+        path = build.compile_library(name)
+        return path, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
+        built = {n: ex.submit(build_one, n) for n in KERNELS}
+        built = {n: f.result() for n, f in built.items()}
+    for name in KERNELS:
+        build.load(name)
+    log(f"phase 2 build: {len(KERNELS)} kernels in parallel in "
+        f"{time.perf_counter() - t0:.3f} s: " + ", ".join(
+            f"{p.name} {s:.3f} s" for p, s in built.values()))
+
+    records = [edt_path(dev, card)]
+    path_err = check_kernels(dev)
+    launches = {"flash_attention_hm": llama_path(dev),
+                "wkv6": rwkv_path(dev)}
+    records += serving_kernel_records(dev, launches, path_err)
+    log(f"kernel times on {card}")
+    log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

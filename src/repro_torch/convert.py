@@ -1,17 +1,19 @@
-"""Carry the reference package's packed state across to the port.
+"""Carry the reference package's state across to the port.
 
-There are no model weights in this system; the state that must match is
-the packed graph (the ``DeviceGraph``/``DeviceSchedule`` columns and the
-fused executor's tile-origin rows) and the stencil grid.
-:func:`from_reference` takes the reference's objects duck-typed — anything
-with the same NumPy attributes, so this module imports nothing of the
-reference — checks every column's type and shape, and returns the port's
-objects, ready for ``packed=`` of the port's executors.  Feeding both
-packages the same packed inputs makes any difference in a result a fault
-of the port.
+Two kinds of state must match.  For the task runtime it is the packed
+graph (the ``DeviceGraph``/``DeviceSchedule`` columns and the fused
+executor's tile-origin rows) and the stencil grid: :func:`from_reference`.
+For the models it is the architecture config and the parameter pytree:
+:func:`config_from_reference` and :func:`params_from_reference`.  Both
+take the reference's objects duck-typed — anything with the same
+attributes and NumPy arrays, so this module imports nothing of the
+reference — check every column's or leaf's type and shape, and return the
+port's objects.  Feeding both packages the same inputs makes any
+difference in a result a fault of the port.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -19,6 +21,9 @@ import torch
 
 from .compat import default_device
 from .core.edt.device import DeviceGraph, DeviceSchedule
+from .models import build_model
+from .models.config import (ArchConfig, MLAConfig, MoEConfig, RWKVConfig,
+                            SSMConfig)
 
 _GRAPH_COLUMNS = ("indptr", "succ", "dec_src", "dec_ptr", "pred_n")
 _SCHEDULE_COLUMNS = ("order", "task_ptr", "lvl_tgt", "edge_ptr")
@@ -81,3 +86,72 @@ def from_reference(dg, ds=None, origins=None, state=None,
     if state is not None:
         grid = torch.from_numpy(np.array(state)).to(default_device(device))
     return Converted(graph, sched, fo, grid)
+
+
+# ------------------------------------------------------------------ models
+_SUBCONFIGS = {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig,
+               "rwkv": RWKVConfig}
+_NP_TO_TORCH = {"float32": torch.float32, "float64": torch.float64,
+                "float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
+def config_from_reference(cfg) -> ArchConfig:
+    """The port's :class:`ArchConfig` with every field of the reference's
+    ``cfg`` (read by attribute); ``attn_impl="pallas"`` becomes ``"cuda"``."""
+    kw = {}
+    for f in dataclasses.fields(ArchConfig):
+        val = getattr(cfg, f.name)
+        sub = _SUBCONFIGS.get(f.name)
+        if sub is not None and val is not None:
+            val = sub(**{g.name: getattr(val, g.name)
+                         for g in dataclasses.fields(sub)})
+        kw[f.name] = val
+    if kw["attn_impl"] == "pallas":
+        kw["attn_impl"] = "cuda"
+    return ArchConfig(**kw)
+
+
+def _leaf(a, want: torch.Tensor, path: str, device) -> torch.Tensor:
+    a = np.asarray(a)
+    dtype = _NP_TO_TORCH.get(a.dtype.name)
+    if dtype != want.dtype or a.shape != tuple(want.shape):
+        raise ValueError(f"{path}: want {want.dtype} of shape "
+                         f"{tuple(want.shape)}, got {a.dtype} of shape "
+                         f"{a.shape}")
+    a = np.array(a, order="C")        # a writable copy
+    if dtype == torch.bfloat16:      # NumPy's bfloat16 is an extension type
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _carry(tree, want, path: str, device):
+    if isinstance(want, dict):
+        if not isinstance(tree, dict) or set(tree) != set(want):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{path or 'params'}: want keys {sorted(want)}, "
+                             f"got {got}")
+        return {k: _carry(tree[k], want[k], f"{path}/{k}", device)
+                for k in want}
+    return _leaf(tree, want, path, device)
+
+
+def params_from_reference(tree, cfg, device=None):
+    """``(params, cfg)`` of the port from the reference's parameters.
+
+    ``tree`` is the reference's parameter pytree (nested dicts) with NumPy
+    leaves, ``cfg`` its ``ArchConfig``.  Every leaf must have the shape and
+    dtype that the port's ``init`` gives that config (its main dtype read
+    from the embedding), else ``ValueError`` names it.  The reference's
+    ``[in, out]`` weight layout (``x @ W``) is kept, so the transfer is one
+    to one.  Tensors go to ``device`` (default CUDA).
+    """
+    device = default_device(device)
+    port_cfg = config_from_reference(cfg)
+    dtype = _NP_TO_TORCH.get(np.asarray(tree["embed"]).dtype.name)
+    if dtype is None:
+        raise ValueError(f"embed: not a float array "
+                         f"({np.asarray(tree['embed']).dtype})")
+    want = build_model(port_cfg).init(torch.Generator(), dtype,
+                                      device="meta")
+    return _carry(tree, want, "", device), port_cfg

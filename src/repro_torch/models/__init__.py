@@ -1,0 +1,70 @@
+"""Model zoo: a uniform functional interface over the ported families.
+
+The port of the reference package's ``models/__init__.py``.  The dense
+decoder (GQA) and RWKV6 families are built; every other family raises
+``NotImplementedError`` naming its ROADMAP item, and so does ``loss``
+until training is ported.  Parameters are dicts of tensors mirroring the
+reference's pytree; ``init`` and ``init_cache`` place them on CUDA unless
+the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from . import rwkv, transformer
+from .config import ArchConfig, MLAConfig, MoEConfig, RWKVConfig, SSMConfig
+
+
+@dataclass(frozen=True)
+class Model:
+    """Uniform handle: every family exposes the same five functions."""
+    cfg: ArchConfig
+    init: Callable          # (generator, dtype, device) -> params
+    loss: Callable          # (params, batch) -> scalar (not ported yet)
+    forward: Callable       # (params, tokens, **kw) -> (logits, caches)
+    init_cache: Callable    # (batch, max_len, dtype, device) -> caches
+    decode_step: Callable   # (params, tokens1, caches, pos) -> (logits, caches)
+
+
+def _family_module(cfg: ArchConfig):
+    if cfg.encdec or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder and multimodal-stub families "
+            f"are not ported yet: ROADMAP Queue 1 #9")
+    if cfg.family == "hybrid" or (cfg.family == "ssm" and cfg.rwkv is None):
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 and the hybrid family wait for the SSD "
+            f"kernel: ROADMAP Queue 1 #1")
+    if cfg.family == "ssm":
+        return rwkv
+    if cfg.moe is not None or cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE and MLA are not ported yet: ROADMAP Queue 1 #9")
+    return transformer
+
+
+def _no_loss(params, batch):
+    raise NotImplementedError("training is not ported yet: ROADMAP Queue 1 #2")
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    mod = _family_module(cfg)
+    return Model(
+        cfg=cfg,
+        init=lambda gen, dtype=torch.bfloat16, device=None: mod.init_params(
+            cfg, gen, dtype, device),
+        loss=_no_loss,
+        forward=lambda params, tokens, **kw: mod.forward(
+            cfg, params, tokens, **kw),
+        init_cache=lambda batch, max_len, dtype=torch.bfloat16, device=None:
+            mod.init_cache(cfg, batch, max_len, dtype, device),
+        decode_step=lambda params, t1, caches, pos: mod.decode_step(
+            cfg, params, t1, caches, pos),
+    )
+
+
+__all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig",
+           "Model", "build_model"]

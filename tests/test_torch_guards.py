@@ -5,6 +5,8 @@
   loads neither (a fresh interpreter).
 * The entry points run on CUDA unless the caller passes ``device="cpu"``:
   on a host without CUDA they raise instead of running on the CPU.
+* The kernel wrappers run their plain versions only for CPU tensors: any
+  other tensor launches the kernel or raises, never falls back.
 * The CUDA build refuses loudly without ``nvcc``.
 """
 from __future__ import annotations
@@ -26,7 +28,12 @@ from repro_torch.core import edt  # noqa: E402
 from repro_torch.core.poly import Tiling  # noqa: E402
 from repro_torch.core.programs import PROGRAMS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.kernels.stencils import SPECS, handwritten_solve  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import build_model, rwkv, transformer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -58,6 +65,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch, repro_torch.convert, repro_torch.compat\n"
         "import repro_torch.core.edt, repro_torch.core.programs\n"
         "import repro_torch.kernels.build, repro_torch.kernels.stencils\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.launch.serve, repro_torch.launch.steps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -96,15 +106,61 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert edt.DeviceExecutor(ig, device="cpu").run().counters.depth > 0
 
 
+@pytest.mark.parametrize("name", ["llama3.2-1b", "rwkv6-1.6b"])
+def test_model_entry_points_raise_without_cuda(monkeypatch, name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config(name).smoke_config()
+    family = transformer if name.startswith("llama") else rwkv
+    m = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        family.init_params(cfg, gen, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        m.init(gen, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        m.init_cache(2, 16, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve(cfg, batch=2, prompt_len=8, gen=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.params_from_reference({}, cfg)
+    # the CPU, asked for by name, runs
+    res = serve(cfg, batch=2, prompt_len=8, gen=2, device="cpu")
+    assert tuple(res.tokens.shape) == (2, 2)
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a plain version was reached")
+
+
+def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(fa, "flash_attention_hm_torch", _refuse)
+    monkeypatch.setattr(wk, "wkv6_torch", _refuse)
+    q = torch.zeros((1, 2, 128, 64), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention_hm(q, q, q)
+    x = torch.zeros((1, 64, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        wk.wkv6(x, x, x, x, torch.zeros((2, 16), device="meta"))
+    # CPU tensors take the plain versions (here refused, so they raise)
+    with pytest.raises(AssertionError, match="plain version"):
+        fa.flash_attention_hm(*(torch.zeros((1, 2, 128, 64)),) * 3)
+    with pytest.raises(AssertionError, match="plain version"):
+        wk.wkv6(*(torch.zeros((1, 64, 2, 16)),) * 4, torch.zeros((2, 16)))
+    assert fa.flash_attention_hm.launches == 0 and wk.wkv6.launches == 0
+
+
 def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
-    out = build.library_path("wavefront_step")
-    assert out.parent == compat.build_dir()
-    assert out.name.startswith("libwavefront_step-") and out.suffix == ".so"
-    assert not out.exists()
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.compile_library("wavefront_step")
+    for name in ("wavefront_step", "flash_attention", "wkv6"):
+        out = build.library_path(name)
+        assert out.parent == compat.build_dir()
+        assert out.name.startswith(f"lib{name}-") and out.suffix == ".so"
+        assert not out.exists()
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.compile_library(name)
     assert compat.build_dir() == ROOT / "build" / "repro_torch"
