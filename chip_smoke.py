@@ -7,11 +7,11 @@ Drives the port's main paths and checks every result.  The EDT path:
 polyhedral program, index graph, wavefront schedule, counted-sync sweeps
 on the card and fused stencil tiles, at the size of the reference's
 acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks).
-The serving path: llama3.2-1b and rwkv6-1.6b at full width, f32 weights
-drawn from a seed.
+The serving path: llama3.2-1b, rwkv6-1.6b and zamba2-7b (Mamba2 + shared
+attention) at full width and depth, f32 weights drawn from a seed.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of the three CUDA kernels from ``src/repro_torch/csrc``, one
+2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
    ``nvcc`` each, all started together, and their times;
 3. ``wavefront_step`` against its plain torch version on the card, byte
    for byte, on every frontier of a real discover sweep, on an edgeless
@@ -23,9 +23,9 @@ drawn from a seed.
    ``handwritten_solve`` and the NumPy ``reference_solve``, and in float64
    at small sizes;
 7. EDT phase times, the wavefront kernel's times and a profile per sweep;
-8. flash attention and WKV6 against their plain torch versions on the
-   card, in f32 and bf16, at the reference's test shapes and at the
-   serving path's shapes;
+8. flash attention, WKV6 and SSD against their plain torch versions on
+   the card, in f32 and bf16, at the reference's test shapes (SSD's
+   state handoff too) and at the serving path's shapes;
 9. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
    kernel (one launch a layer) against the same step on the plain chunked
    attention; the serve loop (B=4, prompt 512, 32 tokens); incremental
@@ -33,11 +33,20 @@ drawn from a seed.
 10. rwkv6-1.6b: the serve loop at the same sizes (one WKV6 launch a layer
     in prefill); prefill logits and every layer's final state against the
     plain recurrence; incremental decode against the full forward;
-11. kernel times (CUDA events, median, warm; flash also with L2 flushed),
+11. kernel times (CUDA events, median, warm and with L2 flushed),
     plain-version times, the time of one PyTorch call computing the same
     function where there is one, the least time the card could take, and
     a ``kernels`` JSON line with each kernel's launches on its main path
-    (counts set to 0 just before that path and read just after).
+    (counts set to 0 just before that path and read just after);
+12. zamba2-7b (68 Mamba2 layers, one shared attention+MLP block applied
+    13 times, 5,736,919,872 parameters): ``make_prefill_step`` at B=2,
+    S=4096 through the SSD kernel (one launch a Mamba2 layer) against the
+    same step on the plain chunked scan; the serve loop (B=4, prompt 512,
+    32 tokens) with prefill logits and every layer's SSM state and conv
+    cache against the plain route; teacher-forced decode against the full
+    forward; and the 4,096-slot ring cache (B=1, a prompt of exactly the
+    window, 32 tokens, decode wrapping from its first step) against the
+    full windowed forward.  Phase 12 runs before phase 11.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -75,10 +84,13 @@ HBM_BYTES_PER_S = 3.35e12               # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12                  # H100 SXM f32 outside tensor cores
 REPS, INNER = 25, 20                    # timing: medians of 25 x 20 launches
 SLEEP_CYCLES = 20_000_000               # ~10 ms of device sleep, a head start
-KERNELS = ("wavefront_step", "flash_attention", "wkv6")
+KERNELS = ("wavefront_step", "flash_attention", "wkv6", "ssd")
 
 # ------------------------------------------------------- the serving path
-LLAMA, RWKV = "llama3.2-1b", "rwkv6-1.6b"
+LLAMA, RWKV, ZAMBA = "llama3.2-1b", "rwkv6-1.6b", "zamba2-7b"
+ZAMBA_PARAMS = 5_736_919_872
+ZAMBA_LAYERS = (68, 13)                 # Mamba2 layers, attention uses
+RING_B = 1                              # ring cache: prompt = the window
 PREFILL_B, PREFILL_S = 2, 4096          # make_prefill_step, flash on path
 SERVE_B, SERVE_LP, SERVE_G = 4, 512, 32  # the serve loop
 #: flash cases (B, H, Hkv, Sq, Skv, D, causal): tests/test_kernels.py's
@@ -96,6 +108,17 @@ WKV_CASES = [
     (4, 512, 32, 64, False), (4, 512, 32, 64, True),
 ]
 WKV_PATH = WKV_CASES[4]
+#: ssd cases (B, S, H, P, N, chunk, with init_state): tests/test_kernels.py's
+#: shapes, then zamba2-7b's serve prefill with and without a state and its
+#: make_prefill_step (the handoff case of tests/test_kernels.py is SSD_HANDOFF)
+SSD_CASES = [
+    (1, 32, 1, 16, 8, 8, False), (2, 64, 2, 32, 16, 16, False),
+    (1, 128, 4, 64, 64, 32, False),
+    (4, 512, 112, 64, 64, 256, True), (4, 512, 112, 64, 64, 256, False),
+    (2, 4096, 112, 64, 64, 256, False),
+]
+SSD_PATH, SSD_PREFILL = SSD_CASES[3], SSD_CASES[5]
+SSD_HANDOFF = (1, 64, 2, 16, 8, 16)
 #: Kernel vs plain version, both computing in f32 from the same inputs:
 #: f32 outputs differ only in summation order (the reference's TOL in
 #: tests/test_kernels.py, 2e-4).  bf16 outputs are one rounding of those
@@ -103,14 +126,24 @@ WKV_PATH = WKV_CASES[4]
 #: 7.8e-3 of the value: rtol 8e-3, and atol 1e-3 for outputs near zero.
 #: The reference's bf16 TOL of 2e-2 is as large as a typical output of a
 #: long causal row (about 0.03 at S=4096) and stays with the CPU tests
-#: against the Pallas interpreter.  WKV6's final state is f32 arithmetic
-#: on the same (widened) inputs in both dtypes: the reference's f32 1e-3.
+#: against the Pallas interpreter.  SSD's kernel walks time in chunks of
+#: SSD_KERNEL_CHUNK whatever the caller's chunk, so it is held at
+#: KERNEL_TOL against its plain version run with that chunk (the same
+#: order of sums).  Against the plain version at the caller's chunk (256
+#: on the path: another order, over terms of up to about 100 whose sum
+#: may be near 0) the path case is held to the reference's f32 SSD
+#: tolerance (tests/test_kernels.py:106-107), SSD_CHUNK_TOL.  WKV6's and
+#: SSD's final states are f32 arithmetic on the same (widened) inputs in
+#: both dtypes: the reference's f32 1e-3.
 KERNEL_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
               "bfloat16": dict(rtol=8e-3, atol=1e-3)}
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+SSD_KERNEL_CHUNK = 64
+SSD_CHUNK_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+                 "bfloat16": KERNEL_TOL["bfloat16"]}
 #: Two f32 routes of one full-width model (kernel vs plain attention or
 #: recurrence, prefill-with-cache plus decode vs one full forward): the
-#: same arithmetic summed in other orders through 16-24 layers.  The
+#: same arithmetic summed in other orders through 16-81 layers.  The
 #: reference's own tolerance for two routes of one model
 #: (tests/test_arch_smoke.py:72-74).
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -439,12 +472,15 @@ def edt_path(dev, card) -> dict:
 
 
 def check_kernels(dev) -> dict:
-    """Phase 8: both serving kernels against their plain versions on the
-    card.  Returns the max abs error at each kernel's path shape (f32)."""
+    """Phase 8: the three serving kernels against their plain versions on
+    the card.  Returns the max abs error at each kernel's path shape
+    (f32)."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_hm,
                                                      flash_attention_hm_torch)
+    from repro_torch.kernels.ssd import ssd, ssd_torch
     from repro_torch.kernels.wkv6 import wkv6, wkv6_torch
 
     gen = torch.Generator(dev).manual_seed(20261017)
@@ -502,6 +538,84 @@ def check_kernels(dev) -> dict:
             f"{' (w bf16 and f32)' if len(wdtypes) > 1 else ''}: max abs "
             f"err {[f'{e:.3e}' for e in errs]} (tol {KERNEL_TOL[tname]}), "
             f"state {[f'{e:.3e}' for e in st_errs]} (tol {STATE_TOL})")
+
+        def ssd_inputs(B, S, H, P, N, with_state, dt_scale=0.5):
+            x = randn(B, S, H, P, dtype=dtype)
+            dt = F.softplus(randn(B, S, H)) * dt_scale
+            A = -torch.exp(0.2 * randn(H))
+            bm, cm = (randn(B, S, N, dtype=dtype) for _ in range(2))
+            return x, dt, A, bm, cm, randn(B, H, P, N) if with_state else None
+
+        def plain(*args):
+            """The plain version in the kernel's own chunk of 64: the same
+            order of sums, so held at KERNEL_TOL."""
+            return ssd_torch(*args,
+                             chunk=min(SSD_KERNEL_CHUNK, args[0].shape[1]))
+
+        errs, st_errs = [], []
+        for case in SSD_CASES:
+            *shape, chunk, with_state = case
+            args = ssd_inputs(*shape, with_state)
+            y, st = ssd(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            want, want_st = plain(*args)
+            what = f"ssd {tname} {case}"
+            err = compare(y, want, KERNEL_TOL[tname], what)
+            st_errs.append(compare(st, want_st, STATE_TOL, what + " state"))
+            errs.append(err)
+            if case == SSD_PATH:
+                # the reference's chunk rule: the caller's chunk of 256
+                want, want_st = ssd_torch(*args, chunk=chunk)
+                chunk_err = compare(y, want, SSD_CHUNK_TOL[tname],
+                                    what + f" vs plain chunk {chunk}")
+                compare(st, want_st, STATE_TOL,
+                        what + f" state vs plain chunk {chunk}")
+                if dtype == torch.float32:
+                    path_err["ssd"] = err
+            del args, y, st, want, want_st
+        # tests/test_kernels.py's handoff: two halves with the carried
+        # state, each against the plain version, and together == the whole
+        B, S, H, P, N, chunk = SSD_HANDOFF
+        x, dt, A, bm, cm, _ = ssd_inputs(B, S, H, P, N, False)
+        full, _ = ssd(x, dt, A, bm, cm, chunk=chunk)
+        h = S // 2
+        y1, st1 = ssd(x[:, :h].contiguous(), dt[:, :h].contiguous(), A,
+                      bm[:, :h].contiguous(), cm[:, :h].contiguous(),
+                      chunk=chunk)
+        tail = [t[:, h:].contiguous() for t in (x, dt, bm, cm)]
+        y2, _ = ssd(tail[0], tail[1], A, tail[2], tail[3], st1, chunk=chunk)
+        torch.cuda.synchronize()
+        want2, _ = plain(tail[0], tail[1], A, tail[2], tail[3], st1)
+        compare(y2, want2, KERNEL_TOL[tname], f"ssd {tname} handoff half")
+        hand_err = compare(torch.cat([y1, y2], 1), full, KERNEL_TOL[tname],
+                           f"ssd {tname} handoff vs whole")
+        # dt·|A| of about 28 a step: exp overflows above the diagonal, and
+        # cum reaches about -1,800 in a chunk of 64, where an f32 ulp is
+        # 1.2e-4: each exp(cum[t] - cum[s]) then differs by that much
+        # between the kernel's warp scan and the plain cumsum, on terms of
+        # up to about 30 that may sum to near 0.  So the error is held to
+        # the tolerance times the output's largest magnitude, not each
+        # element's.
+        args = ssd_inputs(1, 256, 2, 64, 64, False, dt_scale=40.0)
+        y, _ = ssd(*args, chunk=256)
+        torch.cuda.synchronize()
+        want = plain(*args)[0].float()
+        big_err = float((y.float() - want).abs().max())
+        scale = float(want.abs().max())
+        if not bool(torch.isfinite(y).all()) or not (
+                big_err <= KERNEL_TOL[tname]["rtol"] * scale):
+            raise AssertionError(f"ssd {tname} large dt: max abs err "
+                                 f"{big_err} at outputs up to {scale}")
+        log(f"phase 8 ssd {tname} == plain version in chunks of "
+            f"{SSD_KERNEL_CHUNK} at {len(SSD_CASES)} shapes "
+            f"(B,S,H,P,N,chunk,init_state) {SSD_CASES}: max abs err "
+            f"{[f'{e:.3e}' for e in errs]} (tol {KERNEL_TOL[tname]}), state "
+            f"{[f'{e:.3e}' for e in st_errs]} (tol {STATE_TOL}); {SSD_PATH} "
+            f"vs plain chunk {SSD_PATH[5]}: {chunk_err:.3e} (tol "
+            f"{SSD_CHUNK_TOL[tname]}); handoff {SSD_HANDOFF}: halves vs whole "
+            f"{hand_err:.3e}; dt x40 (1,256,2,64,64): finite, max abs err "
+            f"{big_err:.3e} at |y| up to {scale:.1f} (tol "
+            f"{KERNEL_TOL[tname]['rtol']} x that)")
     return path_err
 
 
@@ -558,7 +672,8 @@ def teacher_forced(model_xla, params, prompts, res, label: str) -> float:
 
     seq = torch.cat([prompts, res.tokens[:, :-1]], dim=1)
     full, _ = model_xla.forward(params, seq)
-    want = full[:, SERVE_LP - 1:]
+    want = full[:, prompts.shape[1] - 1:]
+    del full
     got = torch.stack(res.logits, dim=1)
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{label}: decode logits {tuple(got.shape)}, "
@@ -569,12 +684,14 @@ def teacher_forced(model_xla, params, prompts, res, label: str) -> float:
     return err
 
 
-def serve_line(label: str, res, t_first: float) -> str:
-    return (f"{label} serve B={SERVE_B} prompt {SERVE_LP} gen {SERVE_G}: "
+def serve_line(label: str, res, t_first: float, B: int = 0,
+               Lp: int = 0) -> str:
+    B, Lp = B or SERVE_B, Lp or SERVE_LP
+    return (f"{label} serve B={B} prompt {Lp} gen {SERVE_G}: "
             f"prefill {res.prefill_s * 1e3:.2f} ms (first run "
-            f"{t_first * 1e3:.2f} ms), {SERVE_B * SERVE_LP / res.prefill_s:.0f}"
+            f"{t_first * 1e3:.2f} ms), {B * Lp / res.prefill_s:.0f}"
             f" prompt tok/s; decode {res.decode_s_per_step * 1e3:.3f} "
-            f"ms/step, {SERVE_B / res.decode_s_per_step:.1f} tok/s")
+            f"ms/step, {B / res.decode_s_per_step:.1f} tok/s")
 
 
 def llama_path(dev) -> int:
@@ -718,6 +835,159 @@ def rwkv_path(dev) -> int:
     return launches
 
 
+def zamba_path(dev) -> dict:
+    """Phase 12: zamba2-7b at full width and depth.  Returns the SSD
+    launches of one ``make_prefill_step`` call and of one serve run
+    (counts set to 0 just before each)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, hybrid
+
+    cfg = get_config(ZAMBA)
+    cfg_cuda, cfg_xla = (cfg.replace(attn_impl=a) for a in ("cuda", "xla"))
+    m_cuda, m_xla = build_model(cfg_cuda), build_model(cfg_xla)
+    n_ssm, n_attn = hybrid._n_ssm(cfg), hybrid._n_attn(cfg)
+    gen = torch.Generator(dev).manual_seed(0)
+    params, t_init = timed(lambda: m_cuda.init(gen, torch.float32, dev))
+
+    def leaves(t):
+        for v in t.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != ZAMBA_PARAMS or (n_ssm, n_attn) != ZAMBA_LAYERS:
+        raise AssertionError(f"{ZAMBA}: {n_params} parameters, {n_ssm} "
+                             f"Mamba2 layers, {n_attn} attention "
+                             f"applications")
+    log(f"phase 12 {ZAMBA}: {n_params} f32 parameters "
+        f"({4 * n_params / 1e9:.2f} GB) drawn in {t_init:.2f} s; {n_ssm} "
+        f"Mamba2 layers (d {cfg.d_model}, {2 * cfg.d_model // cfg.ssm.head_dim}"
+        f" SSD heads of {cfg.ssm.head_dim}, state {cfg.ssm.d_state}, chunk "
+        f"{cfg.ssm.chunk}), shared attention ({cfg.n_heads} heads of "
+        f"{cfg.hd()}, window {cfg.sliding_window}) + MLP (d_ff {cfg.d_ff}) "
+        f"applied {n_attn} times, vocab {cfg.vocab}")
+
+    # ------------------------------------------ make_prefill_step B=2 S=4096
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), device=dev,
+                           generator=gen)
+    step_cuda = make_prefill_step(m_cuda)
+    step_xla = make_prefill_step(m_xla)
+    ssd.launches = 0
+    with plain_refused(ssd_mod, "ssd_torch"):
+        got, t_cuda = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    step_launches = ssd.launches
+    if step_launches != n_ssm:
+        raise AssertionError(f"{step_launches} ssd launches in a prefill "
+                             f"step of {n_ssm} Mamba2 layers")
+    want, t_xla = timed(lambda: step_xla(params, {"tokens": tokens}))
+    if got.shape != (PREFILL_B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **MODEL_TOL,
+                               msg=lambda m: f"zamba prefill cuda vs xla: {m}")
+    del got, want
+    _, t_cuda_warm = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    _, t_xla_warm = timed(lambda: step_xla(params, {"tokens": tokens}))
+    wall, busy, count, top = device_profile(
+        lambda: step_cuda(params, {"tokens": tokens}))
+    log(f"profile {ZAMBA} make_prefill_step cuda: wall {wall * 1e3:.1f} ms "
+        f"under the profiler, device busy {busy * 1e3:.1f} ms "
+        f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
+        f"{top}")
+    log(f"phase 12 {ZAMBA} make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
+        f"{step_launches} ssd launches; last-position logits cuda vs xla max "
+        f"abs {err:.3e} (tol {MODEL_TOL}); step {t_cuda_warm * 1e3:.1f} ms "
+        f"cuda, {t_xla_warm * 1e3:.1f} ms xla (first runs "
+        f"{t_cuda * 1e3:.1f} / {t_xla * 1e3:.1f} ms), "
+        f"{PREFILL_B * PREFILL_S / t_cuda_warm:.0f} tok/s")
+    del tokens
+    free_model(f"phase 12 {ZAMBA} prefill step")
+
+    # ------------------------------------ serve B=4, prompt 512, 32 tokens
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
+                            generator=gen)
+    first = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                  prompts=prompts)
+    ssd.launches = 0
+    with plain_refused(ssd_mod, "ssd_torch"):
+        res = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                    prompts=prompts)
+    serve_launches = ssd.launches
+    if serve_launches != n_ssm:
+        raise AssertionError(f"{serve_launches} ssd launches in a serve run "
+                             f"of {n_ssm} Mamba2 layers")
+    if not torch.equal(res.tokens, first.tokens):
+        raise AssertionError("two serve runs of one prompt differ")
+
+    def prefill(model):
+        caches = model.init_cache(SERVE_B, SERVE_LP + SERVE_G + 1,
+                                  torch.float32, dev)
+        if "pos" in caches["attn"]:
+            raise AssertionError("a serve cache below the window is a ring")
+        return timed(lambda: model.forward(params, prompts, caches=caches))
+
+    (lg_c, c_c), t_c = prefill(m_cuda)
+    (lg_x, c_x), t_x = prefill(m_xla)
+    err = float((lg_c - lg_x).abs().max())
+    torch.testing.assert_close(lg_c, lg_x, **MODEL_TOL,
+                               msg=lambda m: f"zamba prefill cuda vs xla: {m}")
+    st_err = conv_err = 0.0
+    for i in range(n_ssm):
+        a, b = c_c["ssm"]["ssm"][i], c_x["ssm"]["ssm"][i]
+        st_err = max(st_err, float((a - b).abs().max()))
+        torch.testing.assert_close(
+            a, b, **STATE_TOL,
+            msg=lambda m, i=i: f"zamba layer {i} ssm state: {m}")
+        a, b = c_c["ssm"]["conv"][i], c_x["ssm"]["conv"][i]
+        conv_err = max(conv_err, float((a - b).abs().max()))
+        torch.testing.assert_close(
+            a, b, **MODEL_TOL,
+            msg=lambda m, i=i: f"zamba layer {i} conv cache: {m}")
+    del lg_c, lg_x, c_c, c_x
+    tf_err = teacher_forced(m_xla, params, prompts, res, ZAMBA)
+    log(f"phase 12 {ZAMBA}: {serve_launches} ssd launches in a serve run; "
+        f"prefill logits cuda vs xla max abs {err:.3e} (tol {MODEL_TOL}), "
+        f"all {n_ssm} final ssm states max abs {st_err:.3e} (tol "
+        f"{STATE_TOL}), conv caches {conv_err:.3e}; prefill with cache "
+        f"{t_c * 1e3:.1f} ms cuda, {t_x * 1e3:.1f} ms xla")
+    log(f"phase 12 {serve_line(ZAMBA, res, first.prefill_s)}; teacher-forced "
+        f"decode vs full forward ({SERVE_LP + SERVE_G - 1} tokens, dt=0 "
+        f"padding) max abs {tf_err:.3e} (tol {MODEL_TOL}); sample ids "
+        f"{res.tokens[0, :8].tolist()}")
+    decode_profile(m_cuda, params, prompts, ZAMBA)
+    del first, res, prompts
+    free_model(f"phase 12 {ZAMBA} serve")
+
+    # ---------------- the ring cache: B=1, a prompt of exactly the window
+    W = cfg.sliding_window
+    ring = m_cuda.init_cache(RING_B, W + SERVE_G + 1, torch.float32, dev)
+    if "pos" not in ring["attn"] or tuple(
+            ring["attn"]["k"].shape[:3]) != (n_attn, RING_B, W):
+        raise AssertionError(f"cache of {W + SERVE_G + 1} slots is not a "
+                             f"{W}-slot ring: {ring['attn']['k'].shape}")
+    del ring
+    prompts = torch.randint(0, cfg.vocab, (RING_B, W), device=dev,
+                            generator=gen)
+    ring_res = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                     prompts=prompts)
+    tf_ring = teacher_forced(m_xla, params, prompts, ring_res,
+                             f"{ZAMBA} ring")
+    log(f"phase 12 {serve_line(ZAMBA + ' ring', ring_res, ring_res.prefill_s, RING_B, W)}"
+        f"; {n_attn} ring caches of {W} slots, decode wrapping from its "
+        f"first step; teacher-forced decode vs full windowed forward "
+        f"({W + SERVE_G - 1} tokens) max abs {tf_ring:.3e} (tol "
+        f"{MODEL_TOL}), all logits finite")
+    del params, ring_res, prompts
+    free_model(f"phase 12 {ZAMBA}")
+    return {"prefill_step": step_launches, "serve": serve_launches}
+
+
 def serving_kernel_records(dev, launches: dict, path_err: dict) -> list:
     """Phase 11: times and bounds of the two serving kernels at their path
     shapes, in f32 as the serving path runs them."""
@@ -803,6 +1073,72 @@ def serving_kernel_records(dev, launches: dict, path_err: dict) -> list:
     return recs
 
 
+def ssd_least_flops(B: int, S: int, H: int, P: int, N: int) -> int:
+    """The least f32 operations SSD needs: the chunked form at its best
+    chunk L.  A (step, head) costs 2 P N for C . state and 2 P N for the
+    state update, P N / L for decaying the state once a chunk, and for
+    each of its (L + 1) / 2 pairs at or below the diagonal 2 P for M x,
+    2 for the decay and dt, and 2 N for C . B, which all H heads share."""
+    per = min(4 * P * N + P * N / L + (L + 1) * (P + 1 + N / H)
+              for L in range(1, S + 1))
+    return round(B * S * H * per)
+
+
+def ssd_record(dev, launches: dict, path_err: dict) -> dict:
+    """Phase 11 for SSD: times and bounds at the serve prefill's shape
+    (with the fresh cache's zero state, as a serve run passes it) and at
+    ``make_prefill_step``'s (no state), in f32 as the path runs them."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd import ssd, ssd_torch
+
+    gen = torch.Generator(dev).manual_seed(8)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    out = {}
+    for key, case in (("serve", SSD_PATH), ("prefill_step", SSD_PREFILL)):
+        B, S, H, P, N, chunk, with_state = case
+        x = torch.randn((B, S, H, P), generator=gen, device=dev)
+        dt = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+        A = -torch.ones(H, device=dev)      # zamba2's A_log init is 0
+        bm, cm = (torch.randn((B, S, N), generator=gen, device=dev)
+                  for _ in range(2))
+        s0 = torch.zeros((B, H, P, N), device=dev) if with_state else None
+        args = (x, dt, A, bm, cm, s0)
+        t = {
+            "ms": event_ms(lambda: ssd(*args, chunk=chunk), reps=15,
+                           inner=10),
+            "ms_cold_l2": event_ms(lambda: ssd(*args, chunk=chunk),
+                                   flush=flush, reps=15, inner=10),
+            "plain_ms": event_ms(lambda: ssd_torch(*args, chunk=chunk),
+                                 reps=5, inner=2),
+        }
+        flops = ssd_least_flops(B, S, H, P, N)
+        nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
+                      + (2 if with_state else 1) * B * H * P * N)
+        ops_s, bytes_s = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        t.update({
+            "launches": launches[key], "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "shape": f"x {[B, S, H, P]} Bm/Cm {[B, S, N]} f32, chunk "
+                     f"{chunk}, init_state {with_state}",
+            "flops": flops, "bytes": nbytes})
+        out[key] = t
+        log(f"phase 11 ssd ({t['shape']}): kernel {t['ms']:.4f} ms (cold L2 "
+            f"{t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+            f"library None, bound {t['bound_ms']:.4f} ms ({flops} flop at "
+            f"67 TFLOP/s: {ops_s * 1e3:.4f} ms; {nbytes} bytes at 3.35 "
+            f"TB/s: {bytes_s * 1e3:.4f} ms); {launches[key]} launches in "
+            f"one {key.replace('_', ' ')}")
+        del x, dt, bm, cm, s0, args
+    del flush
+    return {"name": "ssd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd.py:27", "matched": True,
+            "max_abs_err": path_err["ssd"], **out["serve"],
+            "library_ms": None, "at_prefill_step": out["prefill_step"]}
+
+
 def main() -> int:
     import torch
 
@@ -848,7 +1184,9 @@ def main() -> int:
     path_err = check_kernels(dev)
     launches = {"flash_attention_hm": llama_path(dev),
                 "wkv6": rwkv_path(dev)}
+    ssd_launches = zamba_path(dev)
     records += serving_kernel_records(dev, launches, path_err)
+    records.append(ssd_record(dev, ssd_launches, path_err))
     log(f"kernel times on {card}")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ layout adapter lives here so model code stays in ``[B, S, H, D]``.
 from __future__ import annotations
 
 from .flash_attention import flash_attention_hm
+from .ssd import ssd as _ssd
 from .wkv6 import wkv6 as _wkv6
 
 
@@ -21,3 +22,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
 def wkv6(r, k, v, w, u, init_state=None, *, chunk: int = 64):
     """RWKV6 recurrence: r,k,v,w [B,S,H,D], u [H,D] -> (out, state)."""
     return _wkv6(r, k, v, w, u, init_state, chunk=chunk)
+
+
+def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
+    """Mamba2 SSD: x [B,S,H,P], dt [B,S,H], A [H], Bm/Cm [B,S,N]."""
+    return _ssd(x, dt, A, Bm, Cm, init_state, chunk=chunk)

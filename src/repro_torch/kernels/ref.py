@@ -3,7 +3,6 @@
 Copies of the reference package's ``kernels/ref.py`` in torch: naive,
 direct implementations in the models' ``[B, S, H, D]`` layout, the
 ground truth the kernels and their plain versions are checked against.
-``ssd_ref`` comes with the SSD kernel.
 """
 from __future__ import annotations
 
@@ -50,3 +49,26 @@ def wkv6_ref(r, k, v, w, u, init_state=None):
                                  state + u[None, :, :, None] * kv))
         state = wf[:, t][..., None] * state + kv
     return torch.stack(outs, dim=1).to(r.dtype), state
+
+
+def ssd_ref(x, dt, A, Bm, Cm, init_state=None):
+    """Mamba2 SSD recurrence, step by step (the definition).
+
+    x [B,S,H,P], dt [B,S,H] (>=0), A [H] (negative), Bm/Cm [B,S,N].
+      state = exp(dt_t A) * state + dt_t * (x_t ⊗ B_t);   y_t = C_t . state
+    Returns (y [B,S,H,P], final_state [B,H,P,N]).
+    """
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    state = (init_state if init_state is not None
+             else torch.zeros((B, H, P, N), dtype=torch.float32,
+                              device=x.device))
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = Bm.float(), Cm.float()
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A[None, :])            # [B,H]
+        state = state * decay[..., None, None] + torch.einsum(
+            "bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -1,7 +1,8 @@
 """Model zoo: a uniform functional interface over the ported families.
 
 The port of the reference package's ``models/__init__.py``.  The dense
-decoder (GQA) and RWKV6 families are built; every other family raises
+decoder (GQA), RWKV6 and hybrid (Mamba2 + shared attention) families are
+built; every other family raises
 ``NotImplementedError`` naming its ROADMAP item, and so does ``loss``
 until training is ported.  Parameters are dicts of tensors mirroring the
 reference's pytree; ``init`` and ``init_cache`` place them on CUDA unless
@@ -14,7 +15,7 @@ from typing import Callable
 
 import torch
 
-from . import rwkv, transformer
+from . import hybrid, rwkv, transformer
 from .config import ArchConfig, MLAConfig, MoEConfig, RWKVConfig, SSMConfig
 
 
@@ -34,11 +35,9 @@ def _family_module(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder and multimodal-stub families "
             f"are not ported yet: ROADMAP Queue 1 #9")
-    if cfg.family == "hybrid" or (cfg.family == "ssm" and cfg.rwkv is None):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba2 and the hybrid family wait for the SSD "
-            f"kernel: ROADMAP Queue 1 #1")
-    if cfg.family == "ssm":
+    if cfg.family == "hybrid":
+        return hybrid
+    if cfg.family == "ssm" and cfg.rwkv is not None:
         return rwkv
     if cfg.moe is not None or cfg.mla is not None:
         raise NotImplementedError(

@@ -5,9 +5,9 @@ The port of the reference package's ``models/layers.py`` (dense path).
 Attention with ``attn_impl="cuda"`` goes through the hand-written flash
 kernel where the reference took its Pallas kernel; otherwise it runs the
 reference's plain algorithms as torch ops: an online-softmax chunked
-loop, or direct softmax for decode and small sequences.  MLA, MoE and the
-ring-buffer (sliding-window) cache are not ported yet; the reference's
-sharding constraints have no counterpart on one card.
+loop, or direct softmax for decode and small sequences.  MLA and MoE are
+not ported yet; the reference's sharding constraints have no counterpart
+on one card.
 """
 from __future__ import annotations
 
@@ -157,7 +157,7 @@ def attention_core(q, k, v, *, causal=True, q_pos=None, kv_pos=None,
 def normal(gen: torch.Generator, shape, scale: float, dtype, device):
     """``N(0, 1) * scale`` drawn in f32 from ``gen``, cast to ``dtype``."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------- GQA
@@ -178,11 +178,15 @@ def gqa_params(gen, cfg: ArchConfig, dtype, device):
 
 def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
               causal=True, window=0):
-    """GQA attention.  cache: dict(k,v [B,Smax,Hkv,hd], len) for decode.
+    """GQA attention.  cache: dict(k,v [B,Smax,Hkv,hd], len) for decode,
+    or a ring buffer dict(k,v [B,W,Hkv,hd], pos [W], len) for windowed
+    decode past W.
 
-    The cache's ``k``/``v`` are written in place at ``[len, len+S)`` (the
-    reference returns updated copies); the returned cache carries the new
-    length.
+    The cache's ``k``/``v`` (and ``pos``) are written in place (the
+    reference returns updated copies): at ``[len, len+S)``, or in the ring
+    at ``len % W`` with the start clamped to ``W - S``, as the reference's
+    ``dynamic_update_slice`` clamps it.  The returned cache carries the
+    new length.
     """
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
@@ -198,18 +202,26 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     if cache is not None:
         n = cache["len"]
         ck, cv = cache["k"], cache["v"]
-        ck[:, n:n + S] = k
-        cv[:, n:n + S] = v
-        new_cache = {"k": ck, "v": cv, "len": n + S}
-        kv_pos = torch.arange(ck.shape[1], device=x.device)
-        kv_pos = torch.where(kv_pos < n + S, kv_pos, -1)
-        out = attention_core(q, ck, cv, causal=causal, q_pos=positions,
-                             kv_pos=kv_pos, window=window,
-                             impl=cfg.attn_impl)
+        if "pos" in cache:                 # ring buffer of W slots
+            W = ck.shape[1]
+            if S > W:
+                raise ValueError(f"{S} tokens do not fit a ring cache of "
+                                 f"{W} slots")
+            idx = min(n % W, W - S)
+            kv_pos = cache["pos"]
+            kv_pos[idx:idx + S] = positions
+        else:
+            idx = n
+            kv_pos = torch.arange(ck.shape[1], device=x.device)
+            kv_pos = torch.where(kv_pos < n + S, kv_pos, -1)
+        ck[:, idx:idx + S] = k
+        cv[:, idx:idx + S] = v
+        new_cache = {**cache, "len": n + S}
+        k, v = ck, cv
     else:
-        out = attention_core(q, k, v, causal=causal, q_pos=positions,
-                             kv_pos=positions, window=window,
-                             impl=cfg.attn_impl)
+        kv_pos = positions
+    out = attention_core(q, k, v, causal=causal, q_pos=positions,
+                         kv_pos=kv_pos, window=window, impl=cfg.attn_impl)
     return out.reshape(B, S, H * hd) @ p["wo"], new_cache
 
 

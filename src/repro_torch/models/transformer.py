@@ -34,6 +34,30 @@ def layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def layer_cache(c: dict, i: int) -> dict:
+    """Layer ``i``'s attention cache (views) with the shared host ``len``."""
+    return {**layer({k: v for k, v in c.items() if k != "len"}, i),
+            "len": c["len"]}
+
+
+def attn_cache(cfg: ArchConfig, n: int, batch: int, max_len: int, dtype,
+               device) -> dict:
+    """``n`` stacked attention caches: a ring buffer of
+    ``cfg.sliding_window`` slots when the window is shorter than
+    ``max_len`` (``pos`` -1 marks an empty slot), else ``max_len`` flat
+    slots.  ``len`` is a host integer."""
+    ring = 0 < cfg.sliding_window < max_len
+    slots = cfg.sliding_window if ring else max_len
+    shape = (n, batch, slots, cfg.n_kv_heads, cfg.hd())
+    c = {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device),
+         "len": 0}
+    if ring:
+        c["pos"] = torch.full((n, slots), -1, dtype=torch.int32,
+                              device=device)
+    return c
+
+
 def _layer_params(gen, cfg: ArchConfig, dtype, device):
     return {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
@@ -98,31 +122,23 @@ def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
     positions = torch.arange(S, device=x.device) + pos_offset
     c = caches["dense"] if caches is not None else None
     for i in range(cfg.n_layers):
-        ci = None if c is None else {"k": c["k"][i], "v": c["v"][i],
-                                     "len": c["len"]}
-        x, _ = _block(cfg, layer(params["layers"], i), x, positions, ci,
-                      window)
+        x, _ = _block(cfg, layer(params["layers"], i), x, positions,
+                      None if c is None else layer_cache(c, i), window)
     new_caches = None
     if caches is not None:
-        new_caches = {"dense": {"k": c["k"], "v": c["v"],
-                                "len": c["len"] + S}}
+        new_caches = {"dense": {**c, "len": c["len"] + S}}
     x = rmsnorm(params["ln_f"], x, cfg.rms_eps)
     return _unembed(cfg, params, x), new_caches
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """Stacked per-layer decode caches (``len`` is a host integer), on
-    CUDA unless the caller passes ``device="cpu"``."""
+    """Stacked per-layer decode caches (``len`` is a host integer; a ring
+    buffer under a sliding window shorter than ``max_len``), on CUDA
+    unless the caller passes ``device="cpu"``."""
     device = default_device(device)
-    if cfg.sliding_window and cfg.sliding_window < max_len:
-        raise NotImplementedError(
-            "the ring-buffer (sliding-window) cache is not ported yet: "
-            "ROADMAP Queue 1 #1")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd())
-    return {"dense": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device),
-                      "len": 0}}
+    return {"dense": attn_cache(cfg, cfg.n_layers, batch, max_len, dtype,
+                                device)}
 
 
 def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int):

@@ -30,10 +30,11 @@ from repro_torch.core.programs import PROGRAMS  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd as sd  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.kernels.stencils import SPECS, handwritten_solve  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import build_model, rwkv, transformer  # noqa: E402
+from repro_torch.models import build_model, hybrid, rwkv, transformer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -66,6 +67,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.core.edt, repro_torch.core.programs\n"
         "import repro_torch.kernels.build, repro_torch.kernels.stencils\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.ssd, repro_torch.models.hybrid\n"
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve, repro_torch.launch.steps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -106,11 +108,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert edt.DeviceExecutor(ig, device="cpu").run().counters.depth > 0
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b", "rwkv6-1.6b"])
-def test_model_entry_points_raise_without_cuda(monkeypatch, name):
+@pytest.mark.parametrize("name,family", [
+    ("llama3.2-1b", transformer), ("rwkv6-1.6b", rwkv),
+    ("zamba2-7b", hybrid)])
+def test_model_entry_points_raise_without_cuda(monkeypatch, name, family):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config(name).smoke_config()
-    family = transformer if name.startswith("llama") else rwkv
     m = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -137,18 +140,27 @@ def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(fa, "flash_attention_hm_torch", _refuse)
     monkeypatch.setattr(wk, "wkv6_torch", _refuse)
+    monkeypatch.setattr(sd, "ssd_torch", _refuse)
     q = torch.zeros((1, 2, 128, 64), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fa.flash_attention_hm(q, q, q)
     x = torch.zeros((1, 64, 2, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         wk.wkv6(x, x, x, x, torch.zeros((2, 16), device="meta"))
+    xs, dt, A, bm = (torch.zeros(s, device="meta") for s in (
+        (1, 64, 2, 16), (1, 64, 2), (2,), (1, 64, 8)))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sd.ssd(xs, dt, A, bm, bm)
     # CPU tensors take the plain versions (here refused, so they raise)
     with pytest.raises(AssertionError, match="plain version"):
         fa.flash_attention_hm(*(torch.zeros((1, 2, 128, 64)),) * 3)
     with pytest.raises(AssertionError, match="plain version"):
         wk.wkv6(*(torch.zeros((1, 64, 2, 16)),) * 4, torch.zeros((2, 16)))
+    with pytest.raises(AssertionError, match="plain version"):
+        sd.ssd(torch.zeros((1, 64, 2, 16)), torch.zeros((1, 64, 2)),
+               torch.zeros((2,)), *(torch.zeros((1, 64, 8)),) * 2)
     assert fa.flash_attention_hm.launches == 0 and wk.wkv6.launches == 0
+    assert sd.ssd.launches == 0
 
 
 def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
@@ -156,7 +168,7 @@ def test_build_refuses_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
-    for name in ("wavefront_step", "flash_attention", "wkv6"):
+    for name in ("wavefront_step", "flash_attention", "wkv6", "ssd"):
         out = build.library_path(name)
         assert out.parent == compat.build_dir()
         assert out.name.startswith(f"lib{name}-") and out.suffix == ".so"
