@@ -12,7 +12,10 @@ attention) at full width and depth, f32 weights drawn from a seed.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
-   ``nvcc`` each, all started together, and their times;
+   ``nvcc`` each, all started together, and their times; the HMMA
+   (tensor-core) instructions in each library's SASS (``cuobjdump``), which
+   the SSD and flash kernels must have; the registers, spills, shared
+   memory and blocks an SM of those two kernels, and their grids' waves;
 3. ``wavefront_step`` against its plain torch version on the card, byte
    for byte, on every frontier of a real discover sweep, on an edgeless
    graph, an empty frontier and a seeded random DAG;
@@ -35,7 +38,9 @@ attention) at full width and depth, f32 weights drawn from a seed.
     plain recurrence; incremental decode against the full forward;
 11. kernel times (CUDA events, median, warm and with L2 flushed),
     plain-version times, the time of one PyTorch call computing the same
-    function where there is one, the least time the card could take, and
+    function where there is one, the least time the card could take (for
+    the tensor-core kernels at the rate of their accuracy, 3xTF32 for f32,
+    with the f32 SIMT bound beside it), no kernel faster than its bound, and
     a ``kernels`` JSON line with each kernel's launches on its main path
     (counts set to 0 just before that path and read just after);
 12. zamba2-7b (68 Mamba2 layers, one shared attention+MLP block applied
@@ -82,6 +87,21 @@ F32_TOL = dict(rtol=1e-4, atol=1e-5)    # the reference's at-scale tolerance
 F64_TOL = dict(rtol=1e-12, atol=1e-13)
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12                  # H100 SXM f32 outside tensor cores
+#: f32 accuracy on the tensor cores: three TF32 products (3xTF32) for each
+#: f32 one, at a third of the H100 SXM's 495 TFLOP/s of dense TF32
+TF32X3_FLOP_PER_S = 495e12 / 3
+BF16_FLOP_PER_S = 989e12                # H100 SXM dense bf16 tensor cores
+#: exponentials on the special function units: 16 a clock on each of the
+#: 132 SMs at the 1.83 GHz at which the tensor-core rates are quoted
+SFU_EXP_PER_S = 16 * 132 * 1.83e9
+#: the kernels whose products run on the tensor cores, checked in their
+#: SASS for HMMA instructions
+TENSOR_CORE_KERNELS = ("ssd", "flash_attention")
+#: What the redesigned kernels replaced: the SIMT f32 kernels' times at the
+#: path shapes (PERF.md's kernel table, chip_smoke.py on an NVIDIA H100
+#: 80GB HBM3 at 700 W; medians of CUDA-event means, warm L2)
+REPLACED_MS = {"flash_attention_hm": {"ms": 4.829, "ms_bf16": 4.796},
+               "ssd": {"serve": 0.3462, "prefill_step": 1.3072}}
 REPS, INNER = 25, 20                    # timing: medians of 25 x 20 launches
 SLEEP_CYCLES = 20_000_000               # ~10 ms of device sleep, a head start
 KERNELS = ("wavefront_step", "flash_attention", "wkv6", "ssd")
@@ -94,11 +114,13 @@ RING_B = 1                              # ring cache: prompt = the window
 PREFILL_B, PREFILL_S = 2, 4096          # make_prefill_step, flash on path
 SERVE_B, SERVE_LP, SERVE_G = 4, 512, 32  # the serve loop
 #: flash cases (B, H, Hkv, Sq, Skv, D, causal): tests/test_kernels.py's
-#: shapes, then llama3.2-1b's prefill layer and a non-causal Sq != Skv
+#: shapes, then llama3.2-1b's prefill layer, a non-causal Sq != Skv and a
+#: length that is not a multiple of the kernel's 64-row tiles
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True), (2, 4, 2, 256, 256, 64, True),
     (1, 3, 1, 384, 384, 128, True), (1, 2, 2, 128, 256, 64, False),
     (2, 32, 8, 4096, 4096, 64, True), (2, 32, 8, 512, 2048, 64, False),
+    (1, 2, 1, 100, 100, 64, True),
 ]
 FLASH_PATH = FLASH_CASES[4]
 #: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
@@ -110,12 +132,15 @@ WKV_CASES = [
 WKV_PATH = WKV_CASES[4]
 #: ssd cases (B, S, H, P, N, chunk, with init_state): tests/test_kernels.py's
 #: shapes, then zamba2-7b's serve prefill with and without a state and its
-#: make_prefill_step (the handoff case of tests/test_kernels.py is SSD_HANDOFF)
+#: make_prefill_step (the handoff case of tests/test_kernels.py is
+#: SSD_HANDOFF), then odd P and N (rows not a multiple of 16 bytes: the
+#: kernel's element-wise loads) and a tail shorter than its chunk of 64
 SSD_CASES = [
     (1, 32, 1, 16, 8, 8, False), (2, 64, 2, 32, 16, 16, False),
     (1, 128, 4, 64, 64, 32, False),
     (4, 512, 112, 64, 64, 256, True), (4, 512, 112, 64, 64, 256, False),
     (2, 4096, 112, 64, 64, 256, False),
+    (2, 64, 3, 17, 9, 64, True), (1, 100, 2, 40, 24, 100, True),
 ]
 SSD_PATH, SSD_PREFILL = SSD_CASES[3], SSD_CASES[5]
 SSD_HANDOFF = (1, 64, 2, 16, 8, 16)
@@ -546,11 +571,19 @@ def check_kernels(dev) -> dict:
             bm, cm = (randn(B, S, N, dtype=dtype) for _ in range(2))
             return x, dt, A, bm, cm, randn(B, H, P, N) if with_state else None
 
-        def plain(*args):
-            """The plain version in the kernel's own chunk of 64: the same
-            order of sums, so held at KERNEL_TOL."""
-            return ssd_torch(*args,
-                             chunk=min(SSD_KERNEL_CHUNK, args[0].shape[1]))
+        def plain(x, dt, A, bm, cm, s0=None):
+            """The plain version in the kernel's own chunk of 64, a tail
+            padded with dt = 0 as the kernel pads it: the same order of
+            sums, so held at KERNEL_TOL."""
+            S = x.shape[1]
+            L = min(SSD_KERNEL_CHUNK, S)
+            pad = -S % L
+            if pad:
+                x, dt, bm, cm = (torch.cat([t, t.new_zeros(
+                    (t.shape[0], pad) + t.shape[2:])], 1)
+                    for t in (x, dt, bm, cm))
+            y, st = ssd_torch(x, dt, A, bm, cm, s0, chunk=L)
+            return y[:, :S], st
 
         errs, st_errs = [], []
         for case in SSD_CASES:
@@ -988,7 +1021,8 @@ def zamba_path(dev) -> dict:
     return {"prefill_step": step_launches, "serve": serve_launches}
 
 
-def serving_kernel_records(dev, launches: dict, path_err: dict) -> list:
+def serving_kernel_records(dev, launches: dict, path_err: dict,
+                           occupancy: dict) -> list:
     """Phase 11: times and bounds of the two serving kernels at their path
     shapes, in f32 as the serving path runs them."""
     import torch
@@ -1021,8 +1055,17 @@ def serving_kernel_records(dev, launches: dict, path_err: dict) -> list:
     fa_q, fa_kv = q.shape, k.shape
     del q, k, v, qb, kb, vb
     flops = 4 * B * H * D * S * (S + 1) // 2           # causal QK^T and PV
+    exps = B * H * S * (S + 1) // 2                    # one per visible score
     nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-    fa_bound = (flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+    # at f32 accuracy the products run at 3xTF32's rate; SIMT f32 beside it
+    fa_bound = (flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+    fa["bound_ms_simt"] = max(flops / F32_FLOP_PER_S,
+                              nbytes / HBM_BYTES_PER_S) * 1e3
+    # bf16: the products on the bf16 tensor cores and the exponentials on
+    # the SFUs, each a bound, and half the bytes
+    fa["bound_ms_bf16"] = max(flops / BF16_FLOP_PER_S, exps / SFU_EXP_PER_S,
+                              nbytes / 2 / HBM_BYTES_PER_S) * 1e3
+    fa["replaced_ms"] = REPLACED_MS["flash_attention_hm"]
 
     B, S, H, D, _ = WKV_PATH
     r, kk, vv = (torch.randn((B, S, H, D), generator=gen, device=dev)
@@ -1046,13 +1089,15 @@ def serving_kernel_records(dev, launches: dict, path_err: dict) -> list:
     wk_bound = (wops / F32_FLOP_PER_S, wbytes / HBM_BYTES_PER_S)
 
     recs = []
-    for name, src, ref, t, (ops_s, bytes_s), extra in (
+    for name, src, ref, t, (ops_s, bytes_s), rate, extra in (
             ("flash_attention_hm", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:76", fa, fa_bound,
+             "165 TFLOP/s (3xTF32)",
              {"shape": f"q {list(fa_q)} k/v {list(fa_kv)} f32 causal",
-              "flops": flops, "bytes": nbytes}),
+              "flops": flops, "exps": exps, "bytes": nbytes,
+              **occupancy["flash_attention_hm"]}),
             ("wkv6", "src/repro_torch/csrc/wkv6.cu",
-             "src/repro/kernels/wkv6.py:62", wk, wk_bound,
+             "src/repro/kernels/wkv6.py:62", wk, wk_bound, "67 TFLOP/s",
              {"shape": f"r/k/v/w {list(r.shape)} f32, init_state "
                        f"{list(s0.shape)}", "flops": wops, "bytes": wbytes})):
         recs.append({
@@ -1066,10 +1111,15 @@ def serving_kernel_records(dev, launches: dict, path_err: dict) -> list:
             f"(cold L2 {t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} "
             f"ms, library {t['library_ms']}, bound "
             f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({extra['flops']} flop at "
-            f"67 TFLOP/s: {ops_s * 1e3:.4f} ms; {extra['bytes']} bytes at "
+            f"{rate}: {ops_s * 1e3:.4f} ms; {extra['bytes']} bytes at "
             f"3.35 TB/s: {bytes_s * 1e3:.4f} ms)")
-    log(f"phase 11 flash bf16: kernel {fa['ms_bf16']:.4f} ms, "
-        f"scaled_dot_product_attention bf16 {fa['library_ms_bf16']:.4f} ms")
+    log(f"phase 11 flash_attention_hm: SIMT f32 bound "
+        f"{fa['bound_ms_simt']:.4f} ms; bf16 kernel {fa['ms_bf16']:.4f} ms, "
+        f"scaled_dot_product_attention bf16 {fa['library_ms_bf16']:.4f} ms, "
+        f"bf16 bound {fa['bound_ms_bf16']:.4f} ms ({exps} exponentials at "
+        f"{SFU_EXP_PER_S:.4g}/s: {exps / SFU_EXP_PER_S * 1e3:.4f} ms; flop at "
+        f"989 TFLOP/s: {flops / BF16_FLOP_PER_S * 1e3:.4f} ms); replaced "
+        f"SIMT kernel {fa['replaced_ms']} ms")
     return recs
 
 
@@ -1084,7 +1134,7 @@ def ssd_least_flops(B: int, S: int, H: int, P: int, N: int) -> int:
     return round(B * S * H * per)
 
 
-def ssd_record(dev, launches: dict, path_err: dict) -> dict:
+def ssd_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
     """Phase 11 for SSD: times and bounds at the serve prefill's shape
     (with the fresh cache's zero state, as a serve run passes it) and at
     ``make_prefill_step``'s (no state), in f32 as the path runs them."""
@@ -1116,10 +1166,13 @@ def ssd_record(dev, launches: dict, path_err: dict) -> dict:
         flops = ssd_least_flops(B, S, H, P, N)
         nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
                       + (2 if with_state else 1) * B * H * P * N)
-        ops_s, bytes_s = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        # at f32 accuracy the products run at 3xTF32's rate; SIMT f32 beside
+        ops_s, bytes_s = flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
         t.update({
             "launches": launches[key], "bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bound_ms_simt": max(flops / F32_FLOP_PER_S, bytes_s) * 1e3,
+            "replaced_ms": REPLACED_MS["ssd"][key],
             "shape": f"x {[B, S, H, P]} Bm/Cm {[B, S, N]} f32, chunk "
                      f"{chunk}, init_state {with_state}",
             "flops": flops, "bytes": nbytes})
@@ -1127,16 +1180,81 @@ def ssd_record(dev, launches: dict, path_err: dict) -> dict:
         log(f"phase 11 ssd ({t['shape']}): kernel {t['ms']:.4f} ms (cold L2 "
             f"{t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
             f"library None, bound {t['bound_ms']:.4f} ms ({flops} flop at "
-            f"67 TFLOP/s: {ops_s * 1e3:.4f} ms; {nbytes} bytes at 3.35 "
-            f"TB/s: {bytes_s * 1e3:.4f} ms); {launches[key]} launches in "
-            f"one {key.replace('_', ' ')}")
+            f"165 TFLOP/s (3xTF32): {ops_s * 1e3:.4f} ms; {nbytes} bytes at "
+            f"3.35 TB/s: {bytes_s * 1e3:.4f} ms), SIMT f32 bound "
+            f"{t['bound_ms_simt']:.4f} ms; replaced SIMT kernel "
+            f"{t['replaced_ms']} ms; {launches[key]} launches in one "
+            f"{key.replace('_', ' ')}")
         del x, dt, bm, cm, s0, args
     del flush
     return {"name": "ssd", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd.py:27", "matched": True,
             "max_abs_err": path_err["ssd"], **out["serve"],
-            "library_ms": None, "at_prefill_step": out["prefill_step"]}
+            "library_ms": None, "at_prefill_step": out["prefill_step"],
+            **occupancy["ssd"]}
+
+
+def hmma_count(library: Path) -> int:
+    """HMMA (tensor-core) instructions in a library's SASS, by cuobjdump."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sum("HMMA" in line for line in sass.splitlines())
+
+
+def tensor_core_report(libraries: dict) -> dict:
+    """Phase 2, continued: the HMMA count of every kernel's SASS (the
+    tensor-core kernels must have some) and, for those kernels, what they
+    occupy on the card.  Returns ``{record name: {...}}`` for phase 11."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ssd
+
+    counts = {n: hmma_count(p) for n, p in libraries.items()}
+    log(f"phase 2 SASS (cuobjdump -sass | grep -c HMMA): {counts}")
+    for name in TENSOR_CORE_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name}: no HMMA instruction in its SASS")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    # grids: ssd a block per (b, h, 32 columns of P), flash a block per
+    # (b, h, 64 query rows)
+    for rec, lib, occ, blocks in (
+            ("ssd", "ssd", ssd.occupancy(torch.float32),
+             {"serve": SSD_PATH[0] * SSD_PATH[2] * 2,
+              "prefill_step": SSD_PREFILL[0] * SSD_PREFILL[2] * 2}),
+            ("flash_attention_hm", "flash_attention",
+             flash_attention.occupancy(torch.float32, 64),
+             {"prefill_step": -(-FLASH_PATH[3] // 64) * FLASH_PATH[0]
+              * FLASH_PATH[1]})):
+        waves = {k: round(v / (occ["blocks_per_sm"] * sms), 3)
+                 for k, v in blocks.items()}
+        out[rec] = {"hmma": counts[lib], **occ, "blocks": blocks,
+                    "waves": waves}
+        log(f"phase 2 {rec} f32: {occ['registers']} registers and "
+            f"{occ['local_bytes']} spilled bytes a thread, "
+            f"{occ['shared_bytes']} B of shared memory and "
+            f"{occ['threads']} threads a block, {occ['blocks_per_sm']} "
+            f"blocks an SM; grid {blocks} blocks on {sms} SMs: {waves} "
+            f"waves")
+    extra = {f"{dt} D={d}": flash_attention.occupancy(dt, d)
+             for dt in (torch.float32, torch.bfloat16) for d in (64, 128)}
+    extra["ssd bf16"] = ssd.occupancy(torch.bfloat16)
+    log(f"phase 2 other variants (registers, spills, shared bytes, blocks "
+        f"an SM): " + "; ".join(
+            f"{k}: {v['registers']}, {v['local_bytes']}, "
+            f"{v['shared_bytes']}, {v['blocks_per_sm']}"
+            for k, v in extra.items()))
+    # the path's kernels must not spill; the other variants are logged
+    for k, v in out.items():
+        if v["local_bytes"]:
+            raise AssertionError(f"{k}: {v['local_bytes']} bytes of local "
+                                 f"memory a thread (spills)")
+    return out
 
 
 def main() -> int:
@@ -1179,14 +1297,25 @@ def main() -> int:
     log(f"phase 2 build: {len(KERNELS)} kernels in parallel in "
         f"{time.perf_counter() - t0:.3f} s: " + ", ".join(
             f"{p.name} {s:.3f} s" for p, s in built.values()))
+    occupancy = tensor_core_report({n: p for n, (p, _) in built.items()})
 
     records = [edt_path(dev, card)]
     path_err = check_kernels(dev)
     launches = {"flash_attention_hm": llama_path(dev),
                 "wkv6": rwkv_path(dev)}
     ssd_launches = zamba_path(dev)
-    records += serving_kernel_records(dev, launches, path_err)
-    records.append(ssd_record(dev, ssd_launches, path_err))
+    records += serving_kernel_records(dev, launches, path_err, occupancy)
+    records.append(ssd_record(dev, ssd_launches, path_err, occupancy))
+    for r in records:
+        for ms, bound in (("ms", "bound_ms"), ("ms_bf16", "bound_ms_bf16")):
+            if ms in r and not r[bound] <= r[ms]:
+                raise AssertionError(f"{r['name']}: {ms} {r[ms]} is below "
+                                     f"its bound {r[bound]}")
+        step = r.get("at_prefill_step")
+        if step and not step["bound_ms"] <= step["ms"]:
+            raise AssertionError(f"{r['name']} at the prefill step: "
+                                 f"{step['ms']} ms is below its bound "
+                                 f"{step['bound_ms']}")
     log(f"kernel times on {card}")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // The Mamba2 SSD (state space dual) chunked scan, hand-written for Hopper
-// (sm_90a).
+// (sm_90a), its products on the tensor cores at f32 accuracy (3xTF32).
 //
 // Replaces the Pallas kernel of src/repro/kernels/ssd.py (ssd_pallas,
 // inner `_kernel`).  x [B, S, H, P], Bm and Cm [B, S, N] in one type (f32
@@ -21,42 +21,53 @@
 // rounding, and a shorter chunk does less intra-chunk work.
 //
 // Design.  The Pallas grid carries the [P, N] state in VMEM scratch across
-// a sequential axis of chunks.  Here one block of 256 threads owns one
-// (b, h) and loops over the chunks itself, with the state in shared
-// memory for the whole sequence.  A chunk's x, B and C are staged in
-// shared memory as f32 (P and N zero-padded to 64, rows padded to 68
-// floats so float4 reads of eight neighbouring rows fall in distinct
-// banks); warp 0 loads dt and forms cum with a warp scan (two steps a
-// lane).  Then three 64 x 64 x 64 products, each thread a 4 x 4 tile
-// (ty = 0..15 picks rows 4ty..4ty+3, tx = 0..15 columns tx + 16i):
-//   1. G = C B^T (scores) and C state^T (the inter term, scaled by
-//      exp(cum[t]));  M = G exp(cum[t] - cum[s]) dt_s at or below the
-//      diagonal, written transposed to shared memory.  The decay is
-//      masked before the exponential: above the diagonal cum[t] - cum[s]
-//      is positive and overflows exp for large dt |A|, and inf * 0 would
-//      be NaN.
-//   2. y = inter + M x, each warp stopping at its last row's diagonal.
-//   3. the state update x^T diag(w) B, w_s = dt_s exp(cum[end] - cum[s]),
-//      added to exp(cum[end]) state in place.
-// Products are plain f32 FMAs: no TF32 (the reference's f32 tolerance is
-// about TF32's precision) and no wgmma or TMA yet.  Bm and Cm are shared
-// by all H heads and re-read by each head's block, as the Pallas grid
-// re-reads them; they stay in the 50 MB L2.  The tail of a sequence that
-// is not a multiple of 64 is zero-padded with dt = 0 (decay 1, no
-// contribution), as the reference pads.
+// a sequential axis of chunks.  Here a block walks its (b, h)'s chunks in
+// series and keeps the state on chip from the first chunk to the last: in
+// the registers of the warps that update it (mma accumulators) and, split
+// into its two TF32 terms, in shared memory for the next chunk's C state^T.
+// The state never crosses device memory.  (Mamba2's own GPU kernels split
+// the scan into chunk-parallel states, a sequential pass and
+// chunk-parallel outputs; at zamba2-7b's f32 prefill shape that writes and
+// reads a [2,64,112,64,64] f32 state tensor, 235 MB, three more times:
+// about 1.65 GB in all, a floor of 0.49 ms against the 0.14 ms of this
+// design's bytes.)
 //
-// Bound.  At zamba2-7b's serve prefill (x [4, 512, 112, 64], N = 64, f32)
-// the kernel must read x (58.7 MB), dt, A, Bm, Cm (2 MB) and the initial
-// state (7.3 MB), and write y (58.7 MB) and the final state (7.3 MB):
-// about 134 MB, 40 us at 3.35 TB/s.  The least work is the chunked form
-// at its best chunk L: a (step, head) needs 2 P N for C . state, 2 P N
-// for the state update, P N / L to decay the state once a chunk, and
-// (L + 1)(P + 1 + N / H) for the pairs at or below the diagonal (M x,
-// the decay, and C . B shared by all H heads).  At L = 8 that is about
-// 4.27 P N, 4.0 GFLOP, 60 us at 67 TFLOP/s: bound by operations.  This
-// kernel does about 4 P N + kL (2 N + P) a (step, head) (G over the
-// whole tile per head, M x to each warp's diagonal), 64% more at
-// kL = 64, to fill 64-wide products.
+// Two kernels a call.  G = C B^T depends on the chunk but not on the head
+// (Bm and Cm are shared by all H heads), so ssd_gram_kernel computes it
+// once per (b, chunk), at or below the diagonal, into f32 scratch (16 KB a
+// chunk, read back from L2).  The scan then takes each (b, h) in blocks
+// that own kPB = 32 columns of P each (32 rows of the state, 32 columns of
+// x and y): the prefill step's [2, 4096, 112, 64] runs 448 blocks on the
+// 132 SMs, two to an SM.  4 warps; in a chunk, warp i owns rows
+// 16i..16i+15 and the kNtg = 2i + 2 n-tiles of G that reach the diagonal
+// (a compile-time count for each warp, so no mma is guarded):
+//   1. its tiles of G are loaded from the scratch, and yacc = C state^T by
+//      one m16n8k8 pass over N;
+//   2. M = G exp(cum[t] - cum[s]) dt_s at or below the diagonal, on the
+//      fragments in f32 (masked before the exponential: above the diagonal
+//      cum[t] - cum[s] > 0 overflows exp for large dt |A|, and inf * 0
+//      would be NaN), then y = exp(cum[t]) yacc + M x, M moved from the C
+//      to the A fragment layout by quad shuffles;
+//   3. state = exp(cum[end]) state + (x diag(w))^T B, w_s = dt_s
+//      exp(cum[end] - cum[s]): warp w owns state rows 16(w % 2).. and
+//      columns 32(w / 2).., accumulated in its registers.
+// Every product runs on m16n8k8 TF32 tiles in three terms per f32 operand
+// pair (mma_tf32x3.cuh); bf16 x, B and C are exact in one term, so their
+// small terms are skipped.  Chunk c + 1's x, B, C (16-byte cp.async, in
+// their own type) and dt (4-byte cp.async, one lane a step) are in flight
+// while chunk c multiplies: two stages of shared memory.  Warp 0 scans dt
+// into cum with shuffles.  Two barriers a chunk.  Shared-memory rows are
+// padded (x: 40, C and B: 68 f32 or 72 bf16) so that fragment loads fall
+// on distinct banks, but for the state update's B, two lanes a bank.  The
+// tail of a sequence that is not a multiple of 64 is zero-filled with
+// dt = 0 (decay 1, no contribution), as the reference pads.
+//
+// Bound.  At zamba2-7b's prefill step (x [2, 4096, 112, 64], N = 64, f32)
+// the kernel must read x, dt, A, Bm and Cm and write y and the final
+// state: 481 MB, 0.144 ms at 3.35 TB/s.  The least work is the chunked
+// form at its best chunk, about 4.27 P N a (step, head), 16.0 GFLOP: 0.097
+// ms at 3xTF32's 165 TFLOP/s, so bound by bytes.  This kernel does about
+// 4 P N + kL (N / H + P) a (step, head).
 //
 // Contract.  The kernel launches on the caller's stream, does not
 // synchronize and allocates nothing; the caller checks devices, types,
@@ -68,107 +79,315 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
+using namespace tf32x3;
+
 constexpr int kL = 64;            // time steps of a chunk
-constexpr int kD = 64;            // P and N, zero-padded
-constexpr int kLD = kD + 4;       // padded row stride in shared memory
-constexpr int kThreads = 256;     // 16 row groups x 16 column lanes
+constexpr int kN = 64;            // N, zero-padded
+constexpr int kPB = 32;           // columns of P a block owns
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLdS = 68;          // state rows in shared memory
 constexpr unsigned kFull = 0xffffffffu;
-// x, B, C, state, M^T tiles, then cum, dt, exp(cum), w and exp(cum[end])
-constexpr size_t kSmemFloats = 5 * kL * kLD + 4 * kL + 4;
-constexpr size_t kSmem = sizeof(float) * kSmemFloats;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// Rows t0 .. t0+kL-1 of a stream whose row t starts at src + t * stride
-// and holds `cols` values, into dst[kL][kLD] as f32; zero past S or cols.
+// Row strides of a stage's tiles for stream type T.  Fragment loads read
+// x as (row t, column g) and C, B and the state as (row g, column t)
+// (g = lane / 4, t = lane % 4); the strides put the 32 lanes of each such
+// load on 32 banks.  The state update also reads B as (row t, column g),
+// two lanes to a bank.
 template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          size_t stride, int t0, int S,
-                                          int cols) {
-  for (int idx = threadIdx.x; idx < kL * kD; idx += kThreads) {
-    const int r = idx / kD;
-    const int c = idx % kD;
-    float v = 0.f;
-    if (t0 + r < S && c < cols)
-      v = to_f32(src[static_cast<size_t>(t0 + r) * stride + c]);
-    dst[r * kLD + c] = v;
+struct Tiles {
+  static constexpr int kLdX = 40, kLdC = 68, kLdB = 68;
+};
+template <>
+struct Tiles<__nv_bfloat16> {
+  static constexpr int kLdX = 40, kLdC = 72, kLdB = 72;
+};
+
+template <typename T>
+struct Smem {
+  using Ti = Tiles<T>;
+  static constexpr size_t kStage =
+      sizeof(T) * kL * (Ti::kLdX + Ti::kLdC + Ti::kLdB) + sizeof(float) * kL;
+  // two stages, the state's big and small terms, then cum, exp(cum), w
+  // and exp(cum[end])
+  static constexpr size_t kBytes = 2 * kStage +
+                                   2 * sizeof(uint32_t) * kPB * kLdS +
+                                   sizeof(float) * (3 * kL + 4);
+};
+
+template <typename T>
+struct Stage {
+  T* x;       // [kL][kLdX]   x[s][p]
+  T* c;       // [kL][kLdC]   C[t][n]
+  T* b;       // [kL][kLdB]   B[s][n]
+  float* dt;  // [kL]
+  __device__ explicit Stage(unsigned char* base) {
+    x = reinterpret_cast<T*>(base);
+    c = x + kL * Tiles<T>::kLdX;
+    b = c + kL * Tiles<T>::kLdC;
+    dt = reinterpret_cast<float*>(b + kL * Tiles<T>::kLdB);
+  }
+};
+
+// One element, global to shared, zero when !valid: 4-byte cp.async for
+// f32, a plain copy for bf16 (cp.async takes 4, 8 or 16 bytes).
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      bool valid) {
+  cp_async4(dst, src, valid ? 4 : 0);
+}
+__device__ __forceinline__ void copy1(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, bool valid) {
+  *dst = valid ? *src : __float2bfloat16(0.f);
+}
+
+// Rows t0 .. t0 + kL - 1 of a stream whose row t starts at src + t * stride
+// and holds `cols` valid values, into kWidth columns of a tile of row
+// stride ld; zero past S or cols.  With vec, cols is a multiple of 16
+// bytes and src is 16-byte aligned: one cp.async per 16 bytes.
+template <typename T, int kWidth>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
+                                           size_t stride, int t0, int S,
+                                           int cols, bool vec) {
+  if (vec) {
+    constexpr int kE = 16 / sizeof(T);
+    constexpr int kPerRow = kWidth / kE;
+    static_assert(kL * kPerRow % kThreads == 0, "whole copies a thread");
+#pragma unroll
+    for (int k = 0; k < kL * kPerRow / kThreads; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      const int r = i / kPerRow;
+      const int c = (i % kPerRow) * kE;
+      const bool valid = t0 + r < S && c < cols;
+      const T* s = valid ? src + static_cast<size_t>(t0 + r) * stride + c : src;
+      cp_async16(dst + r * ld + c, s, valid ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kL * kWidth; i += kThreads) {
+      const int r = i / kWidth;
+      const int c = i % kWidth;
+      const bool valid = t0 + r < S && c < cols;
+      const T* s = valid ? src + static_cast<size_t>(t0 + r) * stride + c : src;
+      copy1(dst + r * ld + c, s, valid);
+    }
   }
 }
 
 template <typename T>
+__device__ __forceinline__ void stage_chunk(Stage<T> st, const T* xb,
+                                            const float* dtb, const T* Bb,
+                                            const T* Cb, int t0, int S,
+                                            int H, int P, int Pj, int N,
+                                            bool vec) {
+  using Ti = Tiles<T>;
+  stage_rows<T, kPB>(st.x, Ti::kLdX, xb, static_cast<size_t>(H) * P, t0, S,
+                     Pj, vec);
+  stage_rows<T, kN>(st.c, Ti::kLdC, Cb, static_cast<size_t>(N), t0, S, N,
+                    vec);
+  stage_rows<T, kN>(st.b, Ti::kLdB, Bb, static_cast<size_t>(N), t0, S, N,
+                    vec);
+  if (threadIdx.x < kL) {
+    const int r = threadIdx.x;
+    const bool valid = t0 + r < S;
+    cp_async4(st.dt + r,
+              valid ? dtb + static_cast<size_t>(t0 + r) * H : dtb,
+              valid ? 4 : 0);
+  }
+}
+
+// Warp i's chunk rows 16i..16i+15 reach the diagonal at n-tile 2i + 1:
+// its tiles of G = C B^T (and of M) are the kNtg = 2i + 2 first ones.
+// Calls f(Int<kNtg>) with that count as a compile-time constant.
+template <typename F>
+__device__ __forceinline__ void with_diagonal_tiles(int warp, F&& f) {
+  switch (warp) {
+    case 0: f(Int<2>{}); break;
+    case 1: f(Int<4>{}); break;
+    case 2: f(Int<6>{}); break;
+    default: f(Int<8>{}); break;
+  }
+}
+
+// G = C B^T of every chunk, the scores all H heads share: gram[b, c, t, s]
+// for the chunk's rows t and columns s, f32 (three TF32 terms for f32 C and
+// B, one for bf16).  Only the tiles at or below the diagonal are written;
+// the scan reads no others.  One block of 4 warps a (b, chunk).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
+ssd_gram_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+                float* __restrict__ gram, int S, int N, int vec) {
+  constexpr bool kSplitT = Operand<T>::kSplit;
+  constexpr int kLdC = Tiles<T>::kLdC, kLdB = Tiles<T>::kLdB;
+  __shared__ __align__(16) T sC[kL * kLdC];
+  __shared__ __align__(16) T sB[kL * kLdB];
+  const int nc = (S + kL - 1) / kL;
+  const int b = blockIdx.x / nc;
+  const int t0 = (blockIdx.x % nc) * kL;
+  stage_rows<T, kN>(sC, kLdC, Cm + static_cast<size_t>(b) * S * N,
+                    static_cast<size_t>(N), t0, S, N, vec != 0);
+  stage_rows<T, kN>(sB, kLdB, Bm + static_cast<size_t>(b) * S * N,
+                    static_cast<size_t>(N), t0, S, N, vec != 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int offC = (16 * warp + g) * kLdC + t;   // C as A: (row g, col t)
+  const int offB = g * kLdB + t;                 // B as B: (s=g, n=t)
+  float* out = gram + static_cast<size_t>(blockIdx.x) * kL * kL +
+               (16 * warp + g) * kL + 2 * t;
+  with_diagonal_tiles(warp, [&](auto ntg) {
+    constexpr int kNtg = decltype(ntg)::value;
+    float acc[kNtg][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const T* cr = sC + offC + 8 * kk;
+      uint32_t ab[4], as[4];
+      terms<kSplitT>(to_f32(cr[0]), ab[0], as[0]);
+      terms<kSplitT>(to_f32(cr[8 * kLdC]), ab[1], as[1]);
+      terms<kSplitT>(to_f32(cr[4]), ab[2], as[2]);
+      terms<kSplitT>(to_f32(cr[8 * kLdC + 4]), ab[3], as[3]);
+      uint32_t bb[kNtg][2], bs[kNtg][2];
+#pragma unroll
+      for (int nt = 0; nt < kNtg; ++nt) {
+        const T* br = sB + offB + 8 * nt * kLdB + 8 * kk;
+        terms<kSplitT>(to_f32(br[0]), bb[nt][0], bs[nt][0]);
+        terms<kSplitT>(to_f32(br[4]), bb[nt][1], bs[nt][1]);
+      }
+      mma3<kSplitT, kSplitT>(acc, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNtg; ++nt) {
+      *reinterpret_cast<float2*>(out + 8 * nt) =
+          make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(out + 8 * kL + 8 * nt) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+  });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ A, const T* __restrict__ Bm,
            const T* __restrict__ Cm, const float* __restrict__ s0,
-           T* __restrict__ y, float* __restrict__ sf, int S, int H, int P,
-           int N) {
+           const float* __restrict__ gram, T* __restrict__ y,
+           float* __restrict__ sf, int S, int H, int P, int N, int vec) {
+  constexpr bool kSplitT = Operand<T>::kSplit;
+  constexpr int kLdX = Tiles<T>::kLdX, kLdC = Tiles<T>::kLdC,
+                kLdB = Tiles<T>::kLdB;
   extern __shared__ float4 smem4[];
-  float* sX = reinterpret_cast<float*>(smem4);   // [kL][kLD]  x[s][p]
-  float* sB = sX + kL * kLD;                     // [kL][kLD]  B[s][n]
-  float* sC = sB + kL * kLD;                     // [kL][kLD]  C[t][n]
-  float* sS = sC + kL * kLD;                     // [kD][kLD]  state[p][n]
-  float* sM = sS + kD * kLD;                     // [kL][kLD]  M[t][s] at [s][t]
-  float* sCum = sM + kL * kLD;                   // [kL]
-  float* sDt = sCum + kL;                        // [kL]
-  float* sSeg = sDt + kL;                        // [kL] exp(cum[t])
-  float* sW = sSeg + kL;                         // [kL] dt_s exp(cum[end] - cum[s])
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  uint32_t* sSb = reinterpret_cast<uint32_t*>(base + 2 * Smem<T>::kStage);
+  uint32_t* sSs = sSb + kPB * kLdS;              // state[p][n] big, small
+  float* sCum = reinterpret_cast<float*>(sSs + kPB * kLdS);
+  float* sSeg = sCum + kL;                       // exp(cum[t])
+  float* sW = sSeg + kL;                         // dt_s exp(cum[end] - cum[s])
   float* sEnd = sW + kL;                         // exp(cum[end])
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int bh = blockIdx.x;                     // b * H + h
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int nPB = (P + kPB - 1) / kPB;
+  const int bh = blockIdx.x / nPB;               // b * H + h
+  const int p0 = (blockIdx.x % nPB) * kPB;
+  const int Pj = min(kPB, P - p0);               // columns of P here
   const int b = bh / H;
   const int h = bh % H;
   const float a_h = A[h];
-  const size_t xrow = static_cast<size_t>(H) * P;    // stride of t in x, y
-  const size_t xoff = (static_cast<size_t>(b) * S * H + h) * P;
+  const size_t xrow = static_cast<size_t>(H) * P;     // stride of t in x, y
+  const size_t xoff = (static_cast<size_t>(b) * S * H + h) * P + p0;
   const T* xb = x + xoff;
   T* yb = y + xoff;
   const float* dtb = dt + static_cast<size_t>(b) * S * H + h;
   const T* Bb = Bm + static_cast<size_t>(b) * S * N;
   const T* Cb = Cm + static_cast<size_t>(b) * S * N;
+  const int nc = (S + kL - 1) / kL;
 
+  // state rows 16 ps + g (+8) and columns 8 (nb + j) + 2t (+1) live in
+  // this warp's accumulators st[j]
+  const int ps = warp & 1;
+  const int nb = 4 * (warp >> 1);
+  float st[4][4];
   const float* s0b = s0 == nullptr ? nullptr
                                    : s0 + static_cast<size_t>(bh) * P * N;
-  for (int idx = threadIdx.x; idx < kD * kD; idx += kThreads) {
-    const int r = idx / kD;
-    const int c = idx % kD;
-    sS[r * kLD + c] = (s0b != nullptr && r < P && c < N) ? s0b[r * N + c]
-                                                          : 0.f;
-  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 16 * ps + g + (e >= 2 ? 8 : 0);
+      const int n = 8 * (nb + j) + 2 * t + (e & 1);
+      st[j][e] = (s0b != nullptr && p < Pj && n < N)
+                     ? s0b[static_cast<size_t>(p0 + p) * N + n] : 0.f;
+    }
+  const int s_at = (16 * ps + g) * kLdS + 8 * nb + 2 * t;
+  auto publish_state = [&]() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int at = s_at + (e >= 2 ? 8 * kLdS : 0) + 8 * j + (e & 1);
+        uint32_t big, small;
+        split(st[j][e], big, small);
+        sSb[at] = big;
+        sSs[at] = small;
+      }
+  };
+  publish_state();
 
-  // warp w's rows end at 8w + 7: the intra product stops at that diagonal
-  const int s_end = ((threadIdx.x >> 5) + 1) * 8;
+  // this thread's fragment offsets into a stage's tiles and the state;
+  // the rest of each address is a constant
+  const int row0 = 16 * warp;                    // this warp's chunk rows
+  const int offC = (row0 + g) * kLdC + t;        // C as A: (row g, col t)
+  const int offS = g * kLdS + t;                 // state as B: (p=g, n=t)
+  const int offXy = t * kLdX + g;                // x as y's B: (s=t, p=g)
+  const int offXs = t * kLdX + 16 * ps + g;      // x as A^T: (s=t, p=g)
+  const int offBs = t * kLdB + 8 * nb + g;       // B as B: (s=t, n=g)
+  const int r_lo = row0 + g, r_hi = r_lo + 8;
+  // this thread's G fragments: rows r_lo and r_hi, columns 8 nt + 2t (+1)
+  const float* gram_t = gram + static_cast<size_t>(b) * nc * kL * kL +
+                        r_lo * kL + 2 * t;
 
-  for (int t0 = 0; t0 < S; t0 += kL) {
-    __syncthreads();               // the last chunk's readers are done
-    load_rows(sX, xb, xrow, t0, S, P);
-    load_rows(sB, Bb, static_cast<size_t>(N), t0, S, N);
-    load_rows(sC, Cb, static_cast<size_t>(N), t0, S, N);
-    if (threadIdx.x < 32) {
+  stage_chunk(Stage<T>(base), xb, dtb, Bb, Cb, 0, S, H, P, Pj, N, vec != 0);
+  cp_async_commit();
+
+  for (int ic = 0; ic < nc; ++ic) {
+    const int t0 = ic * kL;
+    const Stage<T> cur(base + (ic & 1) * Smem<T>::kStage);
+    cp_async_wait<0>();
+    __syncthreads();   // chunk ic has landed; chunk ic - 1's readers are done
+    if (ic + 1 < nc)
+      stage_chunk(Stage<T>(base + ((ic + 1) & 1) * Smem<T>::kStage), xb, dtb,
+                  Bb, Cb, t0 + kL, S, H, P, Pj, N, vec != 0);
+    cp_async_commit();
+
+    // this warp's tiles of G, from the gram kernel (in flight while the
+    // scan and C state^T run)
+    float gacc[8][4];
+    const float* gp = gram_t + static_cast<size_t>(ic) * kL * kL;
+    with_diagonal_tiles(warp, [&](auto ntg) {
+      constexpr int kNtg = decltype(ntg)::value;
+#pragma unroll
+      for (int nt = 0; nt < kNtg; ++nt) {
+        const float2 lo = *reinterpret_cast<const float2*>(gp + 8 * nt);
+        const float2 hi =
+            *reinterpret_cast<const float2*>(gp + 8 * kL + 8 * nt);
+        gacc[nt][0] = lo.x;
+        gacc[nt][1] = lo.y;
+        gacc[nt][2] = hi.x;
+        gacc[nt][3] = hi.y;
+      }
+    });
+
+    if (warp == 0) {
       // lane l owns steps 2l and 2l+1; padded steps have dt = 0
-      const int lane = threadIdx.x;
       const int i0 = 2 * lane, i1 = i0 + 1;
-      const float d0 = t0 + i0 < S ? dtb[static_cast<size_t>(t0 + i0) * H] : 0.f;
-      const float d1 = t0 + i1 < S ? dtb[static_cast<size_t>(t0 + i1) * H] : 0.f;
+      const float d0 = cur.dt[i0], d1 = cur.dt[i1];
       const float a0 = d0 * a_h, a1 = d1 * a_h;
       float incl = a0 + a1;
 #pragma unroll
@@ -183,147 +402,210 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const float end = __shfl_sync(kFull, c1, 31);
       sCum[i0] = c0;
       sCum[i1] = c1;
-      sDt[i0] = d0;
-      sDt[i1] = d1;
       sSeg[i0] = expf(c0);
       sSeg[i1] = expf(c1);
       sW[i0] = d0 * expf(end - c0);
       sW[i1] = d1 * expf(end - c1);
       if (lane == 0) *sEnd = expf(end);
     }
-    __syncthreads();
 
-    // 1. G[t][s] = C_t . B_s and inter[t][p] = C_t . state[p]:
-    //    rows t = 4ty + a, columns s (and p) = tx + 16i
-    float g[4][4], acc[4][4];
+    // 1. yacc = C state^T (this warp's chunk rows, all columns of P)
+    float yacc[4][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) g[a][i] = acc[a][i] = 0.f;
-#pragma unroll 4
-    for (int n = 0; n < kD; n += 4) {
-      float4 cv[4], bv[4], sv[4];
+      for (int e = 0; e < 4; ++e) yacc[j][e] = 0.f;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) cv[a] = ld4(sC + (4 * ty + a) * kLD + n);
+    for (int kk = 0; kk < 8; ++kk) {
+      const T* cr = cur.c + offC + 8 * kk;
+      uint32_t ab[4], as[4];
+      terms<kSplitT>(to_f32(cr[0]), ab[0], as[0]);
+      terms<kSplitT>(to_f32(cr[8 * kLdC]), ab[1], as[1]);
+      terms<kSplitT>(to_f32(cr[4]), ab[2], as[2]);
+      terms<kSplitT>(to_f32(cr[8 * kLdC + 4]), ab[3], as[3]);
+      uint32_t sb[4][2], ss[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        bv[i] = ld4(sB + (tx + 16 * i) * kLD + n);
-        sv[i] = ld4(sS + (tx + 16 * i) * kLD + n);
+      for (int np = 0; np < 4; ++np) {
+        const int at = offS + 8 * np * kLdS + 8 * kk;
+        sb[np][0] = sSb[at];
+        sb[np][1] = sSb[at + 4];
+        ss[np][0] = sSs[at];
+        ss[np][1] = sSs[at + 4];
       }
+      mma3<kSplitT, true>(yacc, ab, as, sb, ss);
+    }
+    __syncthreads();   // cum is ready; every read of the state is done
+
+    // 2. M = G exp(cum[t] - cum[s]) dt_s on the G fragments (masked on the
+    //    two diagonal tiles, before the exponential), then
+    //    y = exp(cum[t]) C state^T + M x
+    const float cum_lo = sCum[r_lo], cum_hi = sCum[r_hi];
+    auto products2 = [&](auto ntg) {
+      constexpr int kNtg = decltype(ntg)::value;
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+      for (int nt = 0; nt < kNtg; ++nt)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          g[a][i] = dot4(cv[a], bv[i], g[a][i]);
-          acc[a][i] = dot4(cv[a], sv[i], acc[a][i]);
+        for (int e = 0; e < 4; ++e) {
+          const int s = 8 * nt + 2 * t + (e & 1);
+          const float arg = ((e >= 2 ? cum_hi : cum_lo) - sCum[s]) * kLog2e;
+          const float m = gacc[nt][e] * ex2(arg) * cur.dt[s];
+          gacc[nt][e] =
+              nt < kNtg - 2 || s <= (e >= 2 ? r_hi : r_lo) ? m : 0.f;
         }
+#pragma unroll
+      for (int kk = 0; kk < kNtg; ++kk) {
+        float ma[4];
+        c_to_a(gacc[kk], ma);
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(ma[e], ab[e], as[e]);
+        const T* xr = cur.x + offXy + 8 * kk * kLdX;
+        uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          terms<kSplitT>(to_f32(xr[8 * np]), bb[np][0], bs[np][0]);
+          terms<kSplitT>(to_f32(xr[4 * kLdX + 8 * np]), bb[np][1],
+                         bs[np][1]);
+        }
+        mma3<true, kSplitT>(yacc, ab, as, bb, bs);
+      }
+    };
+    const float seg_lo = sSeg[r_lo], seg_hi = sSeg[r_hi];
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      yacc[np][0] *= seg_lo;
+      yacc[np][1] *= seg_lo;
+      yacc[np][2] *= seg_hi;
+      yacc[np][3] *= seg_hi;
     }
+    with_diagonal_tiles(warp, products2);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int t = 4 * ty + a;
-      const float ct = sCum[t];
+    for (int np = 0; np < 4; ++np) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = tx + 16 * i;
-        // mask first: above the diagonal exp(ct - cum[s]) may be inf
-        const float m = s <= t ? g[a][i] * expf(ct - sCum[s]) * sDt[s] : 0.f;
-        sM[s * kLD + t] = m;
-        acc[a][i] *= sSeg[t];
+      for (int e = 0; e < 4; ++e) {
+        const int tt = t0 + (e >= 2 ? r_hi : r_lo);
+        const int p = 8 * np + 2 * t + (e & 1);
+        if (tt < S && p < Pj)
+          store(yb + static_cast<size_t>(tt) * xrow + p, yacc[np][e]);
       }
     }
-    __syncthreads();
 
-    // 2. y[t][p] = inter + sum_{s<=t} M[t][s] x[s][p]
-    for (int s = 0; s < s_end; ++s) {
-      const float4 m = ld4(sM + s * kLD + 4 * ty);
-      const float ma[4] = {m.x, m.y, m.z, m.w};
+    // 3. state = exp(cum[end]) state + (x diag(w))^T B on this warp's
+    //    rows and columns of the state
+    const float e_end = *sEnd;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float xv = sX[s * kLD + tx + 16 * i];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][i] = fmaf(ma[a], xv, acc[a][i]);
+      for (int e = 0; e < 4; ++e) st[j][e] *= e_end;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const float w0 = sW[8 * kk + t], w1 = sW[8 * kk + t + 4];
+      const T* xr = cur.x + offXs + 8 * kk * kLdX;
+      uint32_t ab[4], as[4];
+      split(to_f32(xr[0]) * w0, ab[0], as[0]);
+      split(to_f32(xr[8]) * w0, ab[1], as[1]);
+      split(to_f32(xr[4 * kLdX]) * w1, ab[2], as[2]);
+      split(to_f32(xr[4 * kLdX + 8]) * w1, ab[3], as[3]);
+      const T* br = cur.b + offBs + 8 * kk * kLdB;
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        terms<kSplitT>(to_f32(br[8 * j]), bb[j][0], bs[j][0]);
+        terms<kSplitT>(to_f32(br[4 * kLdB + 8 * j]), bb[j][1], bs[j][1]);
       }
+      mma3<true, kSplitT>(st, ab, as, bb, bs);
     }
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int t = t0 + 4 * ty + a;
-      if (t >= S) continue;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = tx + 16 * i;
-        if (p < P) store1(yb + static_cast<size_t>(t) * xrow + p, acc[a][i]);
-      }
-    }
-
-    // 3. state[p][n] = exp(cum[end]) state[p][n] + sum_s w_s x[s][p] B[s][n]:
-    //    rows p = 4ty + a, columns n = tx + 16i (each thread owns its
-    //    entries; step 1's readers passed the barrier above)
-    float ns[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ns[a][i] = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < kL; ++s) {
-      const float4 xv = ld4(sX + s * kLD + 4 * ty);
-      const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float w = sW[s];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float bw = w * sB[s * kLD + tx + 16 * i];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) ns[a][i] = fmaf(xa[a], bw, ns[a][i]);
-      }
-    }
-    const float e = *sEnd;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* st = sS + (4 * ty + a) * kLD + tx + 16 * i;
-        *st = fmaf(e, *st, ns[a][i]);
-      }
+    publish_state();
   }
-  __syncthreads();
 
   float* sfb = sf + static_cast<size_t>(bh) * P * N;
-  for (int idx = threadIdx.x; idx < P * N; idx += kThreads)
-    sfb[idx] = sS[(idx / N) * kLD + idx % N];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 16 * ps + g + (e >= 2 ? 8 : 0);
+      const int n = 8 * (nb + j) + 2 * t + (e & 1);
+      if (p < Pj && n < N) sfb[static_cast<size_t>(p0 + p) * N + n] = st[j][e];
+    }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* dt, const void* A,
-                   const void* Bm, const void* Cm, const void* s0, void* y,
-                   void* sf, int B, int S, int H, int P, int N,
-                   cudaStream_t stream) {
+                   const void* Bm, const void* Cm, const void* s0,
+                   void* gram, void* y, void* sf, int B, int S, int H, int P,
+                   int N, cudaStream_t stream) {
   auto kernel = ssd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
+      static_cast<int>(Smem<T>::kBytes));
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, kThreads, kSmem, stream>>>(
+  constexpr int kE = 16 / sizeof(T);
+  const bool vec = P % kE == 0 && N % kE == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(Bm) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(Cm) % 16 == 0;
+  const int nc = (S + kL - 1) / kL;
+  ssd_gram_kernel<T><<<B * nc, kThreads, 0, stream>>>(
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm),
+      static_cast<float*>(gram), S, N, vec ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int blocks = B * H * ((P + kPB - 1) / kPB);
+  kernel<<<blocks, kThreads, Smem<T>::kBytes, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(s0),
-      static_cast<T*>(y), static_cast<float*>(sf), S, H, P, N);
+      static_cast<const float*>(gram), static_cast<T*>(y),
+      static_cast<float*>(sf), S, H, P, N, vec ? 1 : 0);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t occupancy(int* out) {
+  auto kernel = ssd_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Smem<T>::kBytes));
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kThreads, Smem<T>::kBytes);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(Smem<T>::kBytes);
+  out[3] = blocks;
+  out[4] = kThreads;
+  return err;
 }
 
 }  // namespace
 
 // dtype (of x, Bm, Cm and y): 0 = float32, 1 = bfloat16.  s0 may be null.
-// Returns a cudaError_t as int.
+// gram is f32 scratch of B * ceil(S / 64) * 64 * 64 floats for the chunks'
+// C B^T.  Returns a cudaError_t as int.
 extern "C" int ssd(const void* x, const void* dt, const void* A,
-                   const void* Bm, const void* Cm, const void* s0, void* y,
-                   void* sf, int B, int S, int H, int P, int N, int dtype,
-                   void* stream) {
+                   const void* Bm, const void* Cm, const void* s0, void* gram,
+                   void* y, void* sf, int B, int S, int H, int P, int N,
+                   int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > kD || N <= 0 || N > kD)
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > 64 || N <= 0 || N > kN)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch<float>(x, dt, A, Bm, Cm, s0, y, sf, B, S, H, P, N, s);
+    return launch<float>(x, dt, A, Bm, Cm, s0, gram, y, sf, B, S, H, P, N, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, s0, y, sf, B, S, H, P, N,
-                                 s);
+    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, s0, gram, y, sf, B, S, H,
+                                 P, N, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What the kernel for dtype occupies: out[0] registers a thread, out[1]
+// local (spilled) bytes a thread, out[2] dynamic shared memory a block,
+// out[3] blocks an SM can hold, out[4] threads a block.
+extern "C" int ssd_occupancy(int dtype, int* out) {
+  if (dtype == 0) return static_cast<int>(occupancy<float>(out));
+  if (dtype == 1) return static_cast<int>(occupancy<__nv_bfloat16>(out));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point.  :func:`load`
 compiles it with ``nvcc`` for Hopper (``sm_90a``) into a shared library on
 first use and opens it with :mod:`ctypes` — no PyTorch headers, so a build
-takes seconds.  The library's file name carries a hash of its source, so
-an edited kernel is rebuilt and a stale one is never loaded.  Nothing is
+takes seconds.  The library's file name carries a hash of its source and
+of every shared header ``csrc/*.cuh`` it may include, so an edited kernel
+or header is rebuilt and a stale library is never loaded.  Nothing is
 compiled when this module is imported.
 """
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..compat import build_dir
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,8 +43,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The shared library built from ``csrc/<name>.cu`` (content-addressed)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    """The shared library built from ``csrc/<name>.cu`` (content-addressed:
+    the hash covers the source and every ``csrc/*.cuh``)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
@@ -72,3 +78,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(compile_library(name)))
             _LOADED[name] = lib
         return lib
+
+
+OCCUPANCY_KEYS = ("registers", "local_bytes", "shared_bytes",
+                  "blocks_per_sm", "threads")
+
+
+def occupancy(fn, *args: int) -> dict:
+    """What a kernel occupies on the current card, from a library's
+    ``<name>_occupancy(..., int out[5])`` entry point (the CUDA runtime's
+    ``cudaFuncGetAttributes`` and occupancy calculator): registers and
+    local (spilled) bytes a thread, dynamic shared memory and threads a
+    block, and blocks an SM holds."""
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    rc = fn(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return dict(zip(OCCUPANCY_KEYS, out))

@@ -127,3 +127,12 @@ def flash_attention_hm(q, k, v, *, causal: bool = True):
 
 
 flash_attention_hm.launches = 0
+
+
+def occupancy(dtype=torch.float32, head_dim: int = 64) -> dict:
+    """Registers, spills, shared memory and blocks an SM of the kernel for
+    ``dtype`` and ``head_dim`` on the current card (see
+    :func:`.build.occupancy`)."""
+    from .build import occupancy as query
+
+    return query(_lib().flash_attention_occupancy, _DTYPES[dtype], head_dim)

@@ -21,6 +21,8 @@ import torch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel pads P and N to 64 in shared memory
 MAX_DIM = 64
+#: the kernel walks time in chunks of this many steps
+KERNEL_CHUNK = 64
 
 
 def ssd_torch(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
@@ -110,7 +112,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("ssd")
     # every pointer and the stream as c_void_p (ctypes cuts untyped ints)
-    lib.ssd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    lib.ssd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.ssd.restype = ctypes.c_int
     return lib
@@ -124,8 +126,10 @@ def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     ``chunk`` keeps the reference's rule: ``S`` must be a multiple of
     ``min(chunk, S)``, else ``ValueError``; the kernel walks time in its
     own chunks of 64, the same function up to rounding.  On CUDA tensors
-    this launches the kernel on the current stream; on CPU tensors it
-    runs the plain version.  ``ssd.launches`` counts kernel launches.
+    this launches the kernel on the current stream (two CUDA kernels: each
+    chunk's ``C Bᵀ``, shared by the heads, then the scan); on CPU tensors
+    it runs the plain version.  ``ssd.launches`` counts those launches,
+    one a call.
     """
     _check_args(x, dt, A, Bm, Cm, init_state, chunk)
     if x.device.type == "cpu":
@@ -137,12 +141,15 @@ def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     N = Bm.shape[-1]
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    # scratch for each chunk's C Bᵀ, which all H heads share
+    gram = torch.empty((B, -(-S // KERNEL_CHUNK), KERNEL_CHUNK, KERNEL_CHUNK),
+                       dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().ssd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(), B, S, H, P, N, _DTYPES[x.dtype],
-        stream)
+        gram.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, P, N,
+        _DTYPES[x.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {rc}")
     ssd.launches += 1
@@ -150,3 +157,11 @@ def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
 
 
 ssd.launches = 0
+
+
+def occupancy(dtype=torch.float32) -> dict:
+    """Registers, spills, shared memory and blocks an SM of the kernel for
+    ``dtype`` on the current card (see :func:`.build.occupancy`)."""
+    from .build import occupancy as query
+
+    return query(_lib().ssd_occupancy, _DTYPES[dtype])
