@@ -56,6 +56,14 @@ attention) at full width and depth, f32 weights drawn from a seed.
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
+
+    python3 chip_smoke.py --ablation
+
+runs only what bounds the tensor-core kernels, as no profiler of the card
+can run beside it: ``ssd`` and ``flash_attention_hm`` rebuilt with a part
+taken out (the ``REPRO_ABLATE_*`` macros of ``csrc/mma_tf32x3.cuh``) and
+timed at their paths' shapes; a JSON object of the times is its last
+line.
 """
 from __future__ import annotations
 
@@ -105,6 +113,11 @@ REPLACED_MS = {"flash_attention_hm": {"ms": 4.829, "ms_bf16": 4.796},
 REPS, INNER = 25, 20                    # timing: medians of 25 x 20 launches
 SLEEP_CYCLES = 20_000_000               # ~10 ms of device sleep, a head start
 KERNELS = ("wavefront_step", "flash_attention", "wkv6", "ssd")
+#: --ablation: the macros that take a part out of the tensor-core kernels
+#: (their results are then wrong; only their times mean something)
+ABLATIONS = {"as built": (), "one TF32 term": ("REPRO_ABLATE_SMALL_TERMS",),
+             "no products": ("REPRO_ABLATE_PRODUCTS",),
+             "no staging": ("REPRO_ABLATE_STAGING",)}
 
 # ------------------------------------------------------- the serving path
 LLAMA, RWKV, ZAMBA = "llama3.2-1b", "rwkv6-1.6b", "zamba2-7b"
@@ -1257,6 +1270,60 @@ def tensor_core_report(libraries: dict) -> dict:
     return out
 
 
+def ablation(dev, card) -> dict:
+    """``--ablation``: ``ssd`` (f32) and ``flash_attention_hm`` (f32 and
+    bf16) at zamba2-7b's and llama3.2-1b's prefill-step shapes, each built
+    as it is and with each part of ``ABLATIONS`` taken out (staging only
+    in ``ssd``), timed through their wrappers with CUDA events."""
+    import unittest.mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd as sd
+
+    modules = {"ssd": sd, "flash_attention": fa}
+    jobs = [(v, n) for v in ABLATIONS for n in modules
+            if not (v == "no staging" and n != "ssd")]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
+        list(ex.map(lambda j: build.compile_library(j[1], ABLATIONS[j[0]]),
+                    jobs))
+    gen = torch.Generator(dev).manual_seed(9)
+    B, S, H, P, N, chunk, _ = SSD_PREFILL
+    ssd_args = (torch.randn((B, S, H, P), generator=gen, device=dev),
+                F.softplus(torch.randn((B, S, H), generator=gen, device=dev)),
+                -torch.ones(H, device=dev),
+                *(torch.randn((B, S, N), generator=gen, device=dev)
+                  for _ in range(2)))
+    B, H, Hkv, Sq, Skv, D, causal = FLASH_PATH
+    qkv = [torch.randn(shape, generator=gen, device=dev) for shape in
+           ((B, H, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
+    qkv_bf16 = [t.bfloat16() for t in qkv]
+    cases = {
+        "ssd float32": ("ssd", lambda: sd.ssd(*ssd_args, chunk=chunk)),
+        "flash_attention_hm float32": (
+            "flash_attention",
+            lambda: fa.flash_attention_hm(*qkv, causal=causal)),
+        "flash_attention_hm bfloat16": (
+            "flash_attention",
+            lambda: fa.flash_attention_hm(*qkv_bf16, causal=causal)),
+    }
+    out = {"card": card, "ms": {}}
+    for key, (name, call) in cases.items():
+        for variant, defines in ABLATIONS.items():
+            if (variant, name) not in jobs:
+                continue
+            lib = modules[name]._lib(defines)
+            with unittest.mock.patch.object(modules[name], "_lib",
+                                            lambda: lib):
+                ms = event_ms(call, reps=9, inner=5)
+            out["ms"].setdefault(key, {})[variant] = ms
+            log(f"ablation {key} {variant}: {ms:.4f} ms on {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1281,6 +1348,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--ablation"]:
+        log(json.dumps(ablation(dev, card)))
+        return 0
 
     # ------------------------------------------------------------ 2. build
     def build_one(name):

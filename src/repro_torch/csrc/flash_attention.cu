@@ -232,8 +232,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const uint64_t qd = wgmma_desc(sQb + at, L::kSbo);
       const uint64_t kd = wgmma_desc(sKb + at, L::kSbo);
       if constexpr (kSplit) {
-        wgmma_tf32(s, wgmma_desc(sQs + at, L::kSbo), kd);
-        wgmma_tf32(s, qd, wgmma_desc(sKs + at, L::kSbo));
+        if constexpr (kSmallTerms) {
+          wgmma_tf32(s, wgmma_desc(sQs + at, L::kSbo), kd);
+          wgmma_tf32(s, qd, wgmma_desc(sKs + at, L::kSbo));
+        }
         wgmma_tf32(s, qd, kd);
       } else {
         wgmma_bf16(s, qd, kd);

@@ -42,6 +42,13 @@
 // rows 16w.. in the same C layout for each of its 8 n-tiles.
 // The C layout is not the A layout: a C tile that feeds a later product
 // as its A operand goes through c_to_a (four pairs of quad shuffles).
+//
+// Writing code on these tiles.  Put independent mma instructions back
+// to back (mma3 runs one term over all n-tiles before the next term), and
+// keep tile counts compile-time: a runtime guard puts a branch and a
+// WARPSYNC before each HMMA.  `cuobjdump -sass` shows what a source line
+// became.  A ptxas warning C7519 means it serialized wgmma around register
+// operands.
 
 #pragma once
 
@@ -49,6 +56,25 @@
 #include <stdint.h>
 
 namespace tf32x3 {
+
+// Ablation switches, for timing the kernels with a part taken out
+// (`python3 chip_smoke.py --ablation` builds with -D; the results are then
+// wrong, only the times mean something):
+//   REPRO_ABLATE_SMALL_TERMS  every 3xTF32 product keeps only big x big;
+//   REPRO_ABLATE_PRODUCTS     no mma or wgmma runs (the operands are still
+//                             loaded and split: a test on their bits that
+//                             never holds keeps them live);
+//   REPRO_ABLATE_STAGING      (ssd) no chunk after the first is loaded.
+#ifdef REPRO_ABLATE_SMALL_TERMS
+constexpr bool kSmallTerms = false;
+#else
+constexpr bool kSmallTerms = true;
+#endif
+#ifdef REPRO_ABLATE_STAGING
+constexpr bool kStaging = false;
+#else
+constexpr bool kStaging = true;
+#endif
 
 // big of the split: a rounded to nearest TF32, ties away from zero
 __device__ __forceinline__ uint32_t tf32_rna(float a) {
@@ -108,6 +134,9 @@ __device__ __forceinline__ void terms(float x, uint32_t& big,
 // schedule it like any arithmetic)
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
+#ifdef REPRO_ABLATE_PRODUCTS
+  if (a[0] != 0x7fffffffu) return;
+#endif
   asm(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -127,11 +156,11 @@ __device__ __forceinline__ void mma3(float (&d)[kM][4],
                                      const uint32_t (&b_big)[kN][2],
                                      const uint32_t (&b_small)[kN][2]) {
   static_assert(kN <= kM, "more b tiles than accumulators");
-  if constexpr (kA) {
+  if constexpr (kA && kSmallTerms) {
 #pragma unroll
     for (int j = 0; j < kN; ++j) mma_tf32(d[j], a_small, b_big[j]);
   }
-  if constexpr (kB) {
+  if constexpr (kB && kSmallTerms) {
 #pragma unroll
     for (int j = 0; j < kN; ++j) mma_tf32(d[j], a_big, b_small[j]);
   }
@@ -197,6 +226,9 @@ __device__ __forceinline__ void wgmma_wait0() {
 // d += A B^T over K = 8 TF32 values
 __device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], uint64_t a,
                                            uint64_t b) {
+#ifdef REPRO_ABLATE_PRODUCTS
+  if (a != 1ull) return;
+#endif
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
@@ -208,6 +240,9 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[8][4], uint64_t a,
 // d += A B^T over K = 16 bf16 values
 __device__ __forceinline__ void wgmma_bf16(float (&d)[8][4], uint64_t a,
                                            uint64_t b) {
+#ifdef REPRO_ABLATE_PRODUCTS
+  if (a != 1ull) return;
+#endif
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "

@@ -46,8 +46,9 @@
 //   2. M = G exp(cum[t] - cum[s]) dt_s at or below the diagonal, on the
 //      fragments in f32 (masked before the exponential: above the diagonal
 //      cum[t] - cum[s] > 0 overflows exp for large dt |A|, and inf * 0
-//      would be NaN), then y = exp(cum[t]) yacc + M x, M moved from the C
-//      to the A fragment layout by quad shuffles;
+//      would be NaN, so there the exponent is -inf and the factor 0), then
+//      y = exp(cum[t]) yacc + M x, M moved from the C to the A fragment
+//      layout by quad shuffles;
 //   3. state = exp(cum[end]) state + (x diag(w))^T B, w_s = dt_s
 //      exp(cum[end] - cum[s]): warp w owns state rows 16(w % 2).. and
 //      columns 32(w / 2).., accumulated in its registers.
@@ -361,7 +362,7 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     const Stage<T> cur(base + (ic & 1) * Smem<T>::kStage);
     cp_async_wait<0>();
     __syncthreads();   // chunk ic has landed; chunk ic - 1's readers are done
-    if (ic + 1 < nc)
+    if (kStaging && ic + 1 < nc)
       stage_chunk(Stage<T>(base + ((ic + 1) & 1) * Smem<T>::kStage), xb, dtb,
                   Bb, Cb, t0 + kL, S, H, P, Pj, N, vec != 0);
     cp_async_commit();
@@ -447,10 +448,12 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int s = 8 * nt + 2 * t + (e & 1);
-          const float arg = ((e >= 2 ? cum_hi : cum_lo) - sCum[s]) * kLog2e;
-          const float m = gacc[nt][e] * ex2(arg) * cur.dt[s];
-          gacc[nt][e] =
-              nt < kNtg - 2 || s <= (e >= 2 ? r_hi : r_lo) ? m : 0.f;
+          // above the diagonal the exponent is -inf, so the factor is 0
+          const bool keep = nt < kNtg - 2 || s <= (e >= 2 ? r_hi : r_lo);
+          const float arg =
+              keep ? ((e >= 2 ? cum_hi : cum_lo) - sCum[s]) * kLog2e
+                   : __int_as_float(0xff800000);   // -inf
+          gacc[nt][e] *= ex2(arg) * cur.dt[s];
         }
 #pragma unroll
       for (int kk = 0; kk < kNtg; ++kk) {

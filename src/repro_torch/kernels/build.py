@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC))
 
-_LOADED: dict[str, ctypes.CDLL] = {}
+_LOADED: dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -42,10 +42,13 @@ def nvcc() -> str:
         "kernels of repro_torch are built from source on first use")
 
 
-def library_path(name: str) -> Path:
-    """The shared library built from ``csrc/<name>.cu`` (content-addressed:
-    the hash covers the source and every ``csrc/*.cuh``)."""
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """The shared library built from ``csrc/<name>.cu`` with the macros
+    ``defines`` (content-addressed: the hash covers the source, every
+    ``csrc/*.cuh`` and the macros)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for macro in defines:
+        h.update(f"-D{macro}".encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
@@ -53,14 +56,16 @@ def library_path(name: str) -> Path:
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 
 
-def compile_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    out = library_path(name)
+def compile_library(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` with ``-D`` for each of ``defines``
+    unless its library is already built."""
+    out = library_path(name, defines)
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{m}" for m in defines), "-o",
+           str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -70,13 +75,14 @@ def compile_library(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built on first use."""
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built with the macros
+    ``defines``), built on first use."""
     with _LOCK:
-        lib = _LOADED.get(name)
+        lib = _LOADED.get((name, defines))
         if lib is None:
-            lib = ctypes.CDLL(str(compile_library(name)))
-            _LOADED[name] = lib
+            lib = ctypes.CDLL(str(compile_library(name, defines)))
+            _LOADED[(name, defines)] = lib
         return lib
 
 

@@ -84,10 +84,10 @@ def _check_cuda(q, k, v) -> None:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     from .build import load
 
-    lib = load("flash_attention")
+    lib = load("flash_attention", defines)
     # every pointer and the stream as c_void_p (ctypes cuts untyped ints)
     lib.flash_attention_hm.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 8 + [ctypes.c_void_p]

@@ -107,10 +107,10 @@ def _check_cuda(x, dt, A, Bm, Cm, init_state) -> None:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     from .build import load
 
-    lib = load("ssd")
+    lib = load("ssd", defines)
     # every pointer and the stream as c_void_p (ctypes cuts untyped ints)
     lib.ssd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]

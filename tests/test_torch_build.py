@@ -2,13 +2,16 @@
 
 Each ``csrc/<name>.cu`` is built alone into a library whose file name
 carries a hash of what it is built from: the source and every shared
-header ``csrc/*.cuh`` it may include.  An edit to a header must move the
-library path, or a stale library would be loaded.  Nothing here calls
-``nvcc``.
+header ``csrc/*.cuh`` it may include, and the macros it is built with.
+An edit to a header must move the library path, or a stale library would
+be loaded.  Nothing here calls ``nvcc``.
 """
 from __future__ import annotations
 
 import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 
@@ -17,6 +20,7 @@ pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 
 KERNELS = ("wavefront_step", "flash_attention", "wkv6", "ssd")
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -59,3 +63,36 @@ def test_the_kernels_include_the_shared_header_from_csrc():
     for name in ("ssd", "flash_attention"):
         text = (build.CSRC / f"{name}.cu").read_text()
         assert '#include "mma_tf32x3.cuh"' in text
+
+
+def test_macros_move_the_library_path_and_reach_nvcc(monkeypatch):
+    plain = build.library_path("ssd")
+    ablated = build.library_path("ssd", ("REPRO_ABLATE_PRODUCTS",))
+    assert ablated != plain and ablated.parent == plain.parent
+    seen = []
+
+    def run(cmd, **kwargs):
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "stub")
+
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", run)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.compile_library("ssd", ("REPRO_ABLATE_PRODUCTS",))
+    assert "-DREPRO_ABLATE_PRODUCTS" in seen[0]
+    assert not ablated.exists()
+
+
+def test_every_ablation_macro_is_read_by_the_kernels():
+    """``chip_smoke.py --ablation`` builds with these macros: a macro that
+    no source reads would time the kernels as built under another name."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    text = "".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
+    macros = {m for ds in chip_smoke.ABLATIONS.values() for m in ds}
+    assert macros
+    for macro in macros:
+        assert f"#ifdef {macro}\n" in text, macro

@@ -10,8 +10,9 @@ f32 tensors, checks the rounding on hand-picked values, runs flash
 attention and the SSD chunk walk in the kernels' order with every product
 in three terms, and holds both against the reference's oracles
 (``repro.kernels.ref``) at the f32 tolerance to which ``chip_smoke.py``
-holds the kernels (2e-4).  One more case shows that a single TF32 term
-fails that tolerance: the record of why three.
+holds the kernels (2e-4).  Two more cases, one a kernel, show that a
+single TF32 term fails that tolerance: the record of why three, and
+that the tolerance would catch a kernel that dropped its small terms.
 """
 from __future__ import annotations
 
@@ -190,14 +191,11 @@ def ssd_kernel_order(x, dt, a, Bm, Cm, s0, mm):
     return torch.cat(ys), state
 
 
-@pytest.mark.parametrize("dt_scale", [0.5, 40.0])
-def test_ssd_in_three_terms_meets_the_kernel_tolerance(dt_scale):
+def _ssd(mm, dt_scale):
     """chip_smoke.py's phase 8 draws: dt = softplus(z) * dt_scale, A =
-    -exp(0.2 z), at B=1, S=192, H=2, P=32, N=16 with an initial state.
-    At dt x40 (dt |A| about 28 a step, cum down to about -1,800 in a
-    chunk) the chunked form carries cum's f32 rounding into each decay, so
-    that case is held, as phase 8 holds it, to the tolerance times the
-    largest output."""
+    -exp(0.2 z), at B=1, S=192, H=2, P=32, N=16 with an initial state,
+    through the kernel-order walk with ``mm`` and the reference's oracle;
+    returns (y, state, y_ref, state_ref) as f32 numpy."""
     rng = np.random.default_rng(int(dt_scale))
     B, S, H, P, N = 1, 192, 2, 32, 16
     x = rng.standard_normal((B, S, H, P)).astype(np.float32)
@@ -213,9 +211,19 @@ def test_ssd_in_three_terms_meets_the_kernel_tolerance(dt_scale):
     tx, tdt, tB, tC, ts0 = (torch.from_numpy(t)
                             for t in (x, dt, Bm, Cm, s0))
     outs = [ssd_kernel_order(tx[0, :, h], tdt[0, :, h], float(A[h]), tB[0],
-                             tC[0], ts0[0, h], mm3) for h in range(H)]
+                             tC[0], ts0[0, h], mm) for h in range(H)]
     y = np.stack([o[0].numpy() for o in outs], axis=1)[None]
     st = np.stack([o[1].numpy() for o in outs])[None]
+    return y, st, y_ref, st_ref
+
+
+@pytest.mark.parametrize("dt_scale", [0.5, 40.0])
+def test_ssd_in_three_terms_meets_the_kernel_tolerance(dt_scale):
+    """At dt x40 (dt |A| about 28 a step, cum down to about -1,800 in a
+    chunk) the chunked form carries cum's f32 rounding into each decay, so
+    that case is held, as phase 8 holds it, to the tolerance times the
+    largest output."""
+    y, st, y_ref, st_ref = _ssd(mm3, dt_scale)
     assert np.isfinite(y).all()
     if dt_scale <= 1.0:
         np.testing.assert_allclose(y, y_ref, **TOL)
@@ -224,3 +232,12 @@ def test_ssd_in_three_terms_meets_the_kernel_tolerance(dt_scale):
         assert float(np.abs(y - y_ref).max()) <= TOL["rtol"] * scale, scale
     # chip_smoke.STATE_TOL
     np.testing.assert_allclose(st, st_ref, rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_in_one_tf32_term_fails_the_kernel_tolerance():
+    y, _, y_ref, _ = _ssd(mm1, 0.5)
+    err = np.abs(y - y_ref)
+    worst = float((err / (TOL["atol"] + TOL["rtol"] * np.abs(y_ref))).max())
+    assert worst > 2.0, worst       # measured: about 27x the tolerance
+    y3, _, _, _ = _ssd(mm3, 0.5)
+    assert float(np.abs(y3 - y_ref).max()) < float(err.max()) / 100
