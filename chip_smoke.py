@@ -15,7 +15,8 @@ attention) at full width and depth, f32 weights drawn from a seed.
    ``nvcc`` each, all started together, and their times; the HMMA
    (tensor-core) instructions in each library's SASS (``cuobjdump``), which
    the SSD and flash kernels must have; the registers, spills, shared
-   memory and blocks an SM of those two kernels, and their grids' waves;
+   memory and blocks an SM of the three serving kernels, and their grids'
+   waves at the path shapes (none may spill);
 3. ``wavefront_step`` against its plain torch version on the card, byte
    for byte, on every frontier of a real discover sweep, on an edgeless
    graph, an empty frontier and a seeded random DAG;
@@ -28,21 +29,27 @@ attention) at full width and depth, f32 weights drawn from a seed.
 7. EDT phase times, the wavefront kernel's times and a profile per sweep;
 8. flash attention, WKV6 and SSD against their plain torch versions on
    the card, in f32 and bf16, at the reference's test shapes (SSD's
-   state handoff too) and at the serving path's shapes;
+   state handoff too) and at the serving path's shapes (WKV6's also with
+   decays of exactly 0 and 1, a sequence shorter than its stretch and
+   D=128);
 9. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
    kernel (one launch a layer) against the same step on the plain chunked
    attention; the serve loop (B=4, prompt 512, 32 tokens); incremental
    decode against the full forward;
-10. rwkv6-1.6b: the serve loop at the same sizes (one WKV6 launch a layer
-    in prefill); prefill logits and every layer's final state against the
-    plain recurrence; incremental decode against the full forward;
+10. rwkv6-1.6b: ``make_prefill_step`` at B=2, S=4096 through the WKV6
+    kernel (one launch a layer) against the same step on the plain
+    recurrence; the serve loop at the same sizes as llama's (one WKV6
+    launch a layer in prefill); prefill logits and every layer's final
+    state against the plain recurrence; incremental decode against the
+    full forward;
 11. kernel times (CUDA events, median, warm and with L2 flushed),
     plain-version times, the time of one PyTorch call computing the same
     function where there is one, the least time the card could take (for
     the tensor-core kernels at the rate of their accuracy, 3xTF32 for f32,
-    with the f32 SIMT bound beside it), no kernel faster than its bound, and
-    a ``kernels`` JSON line with each kernel's launches on its main path
-    (counts set to 0 just before that path and read just after);
+    with the f32 SIMT bound beside it), no kernel faster than its bound,
+    WKV6 faster than the kernel it replaced at both its shapes, and a
+    ``kernels`` JSON line with each kernel's launches on its main paths
+    (counts set to 0 just before each path and read just after);
 12. zamba2-7b (68 Mamba2 layers, one shared attention+MLP block applied
     13 times, 5,736,919,872 parameters): ``make_prefill_step`` at B=2,
     S=4096 through the SSD kernel (one launch a Mamba2 layer) against the
@@ -59,11 +66,16 @@ the repository beside it, the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --ablation
 
-runs only what bounds the tensor-core kernels, as no profiler of the card
-can run beside it: ``ssd`` and ``flash_attention_hm`` rebuilt with a part
-taken out (the ``REPRO_ABLATE_*`` macros of ``csrc/mma_tf32x3.cuh``) and
+runs only what bounds the kernels, as no profiler of the card can run
+beside it: ``ssd``, ``flash_attention_hm`` and ``wkv6`` rebuilt with a
+part taken out (the ``REPRO_ABLATE_*`` macros the sources read) and
 timed at their paths' shapes; a JSON object of the times is its last
 line.
+
+    python3 chip_smoke.py --ablation --replaced DIR
+
+also builds the ``wkv6`` kernel of the checkout at ``DIR`` (an earlier
+commit, from ``git archive``) and times it in turns with this one.
 """
 from __future__ import annotations
 
@@ -105,19 +117,29 @@ SFU_EXP_PER_S = 16 * 132 * 1.83e9
 #: the kernels whose products run on the tensor cores, checked in their
 #: SASS for HMMA instructions
 TENSOR_CORE_KERNELS = ("ssd", "flash_attention")
-#: What the redesigned kernels replaced: the SIMT f32 kernels' times at the
+#: What the redesigned kernels replaced: the earlier kernels' times at the
 #: path shapes (PERF.md's kernel table, chip_smoke.py on an NVIDIA H100
-#: 80GB HBM3 at 700 W; medians of CUDA-event means, warm L2)
+#: 80GB HBM3 at 700 W; medians of CUDA-event means, warm L2).  wkv6's is
+#: PR 13's kernel, timed by ``--ablation --replaced`` in turns beside its
+#: successor (the mean of its two turns)
 REPLACED_MS = {"flash_attention_hm": {"ms": 4.829, "ms_bf16": 4.796},
-               "ssd": {"serve": 0.3462, "prefill_step": 1.3072}}
+               "ssd": {"serve": 0.3462, "prefill_step": 1.3072},
+               "wkv6": {"serve": 0.2084, "prefill_step": 1.5980}}
 REPS, INNER = 25, 20                    # timing: medians of 25 x 20 launches
 SLEEP_CYCLES = 20_000_000               # ~10 ms of device sleep, a head start
 KERNELS = ("wavefront_step", "flash_attention", "wkv6", "ssd")
-#: --ablation: the macros that take a part out of the tensor-core kernels
-#: (their results are then wrong; only their times mean something)
+#: --ablation: the macros that take a part out of the kernels (their
+#: results are then wrong, but for "one column a thread"; only their times
+#: mean something), and the libraries that read each
 ABLATIONS = {"as built": (), "one TF32 term": ("REPRO_ABLATE_SMALL_TERMS",),
              "no products": ("REPRO_ABLATE_PRODUCTS",),
-             "no staging": ("REPRO_ABLATE_STAGING",)}
+             "no staging": ("REPRO_ABLATE_STAGING",),
+             "one column a thread": ("REPRO_ABLATE_COLUMN_BLOCKING",)}
+ABLATED = {"as built": ("ssd", "flash_attention", "wkv6"),
+           "one TF32 term": ("ssd", "flash_attention"),
+           "no products": ("ssd", "flash_attention"),
+           "no staging": ("ssd", "wkv6"),
+           "one column a thread": ("wkv6",)}
 
 # ------------------------------------------------------- the serving path
 LLAMA, RWKV, ZAMBA = "llama3.2-1b", "rwkv6-1.6b", "zamba2-7b"
@@ -137,12 +159,19 @@ FLASH_CASES = [
 ]
 FLASH_PATH = FLASH_CASES[4]
 #: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
-#: shapes, then rwkv6-1.6b's serve prefill with and without a state
+#: shapes, then rwkv6-1.6b's serve prefill with and without a state and
+#: its make_prefill_step, then a sequence shorter than the kernel's
+#: stretch of 16 steps with an odd head count, and D=128 with a state.
+#: The serve prefill also runs with decays of exactly 0 and 1 (WKV_EDGE)
 WKV_CASES = [
     (1, 32, 1, 8, False), (2, 64, 2, 16, False), (1, 128, 2, 64, False),
     (4, 512, 32, 64, False), (4, 512, 32, 64, True),
+    (2, 4096, 32, 64, False), (3, 37, 5, 64, True), (2, 256, 4, 128, True),
 ]
-WKV_PATH = WKV_CASES[4]
+WKV_PATH, WKV_PREFILL = WKV_CASES[4], WKV_CASES[5]
+WKV_EDGE = WKV_PATH
+#: state columns a block of the wkv6 kernel at D=64 (csrc/wkv6.cu, Split)
+WKV_BLOCK_COLUMNS = 32
 #: ssd cases (B, S, H, P, N, chunk, with init_state): tests/test_kernels.py's
 #: shapes, then zamba2-7b's serve prefill with and without a state and its
 #: make_prefill_step (the handoff case of tests/test_kernels.py is
@@ -554,25 +583,33 @@ def check_kernels(dev) -> dict:
         errs, st_errs = [], []
         # bf16 streams also with an f32 decay, as the RWKV6 layer makes it
         wdtypes = (dtype,) if dtype == torch.float32 else (dtype, torch.float32)
-        for case in WKV_CASES:
+        for case, edge in [(c, False) for c in WKV_CASES] + [(WKV_EDGE, True)]:
             B, S, H, D, with_state = case
             for wdtype in wdtypes:
                 r, k, v = (randn(B, S, H, D, dtype=dtype) for _ in range(3))
-                w = torch.sigmoid(randn(B, S, H, D) - 1.0).to(wdtype)
+                w = torch.sigmoid(randn(B, S, H, D) - 1.0)
+                if edge:    # channels that forget at once, and never
+                    w[..., 0::4], w[..., 1::4] = 0.0, 1.0
+                w = w.to(wdtype)
                 u = 0.1 * randn(H, D)
                 s0 = randn(B, H, D, D) if with_state else None
                 out, st = wkv6(r, k, v, w, u, s0)
                 torch.cuda.synchronize()
                 want, want_st = wkv6_torch(r, k, v, w, u, s0)
-                what = f"wkv6 {tname} w {wdtype} {case}"
+                what = f"wkv6 {tname} w {wdtype} {case}{' w 0/1' * edge}"
                 err = compare(out, want, KERNEL_TOL[tname], what)
                 st_errs.append(compare(st, want_st, STATE_TOL,
                                        what + " state"))
                 errs.append(err)
-                if case == WKV_PATH and dtype == torch.float32:
-                    path_err["wkv6"] = err
+                if not edge and dtype == torch.float32:
+                    if case == WKV_PATH:
+                        path_err["wkv6"] = err
+                    if case == WKV_PREFILL:
+                        path_err["wkv6 prefill_step"] = err
+                del r, k, v, w, s0, out, st, want, want_st
         log(f"phase 8 wkv6 {tname} == plain version at {len(WKV_CASES)} "
-            f"shapes (B,S,H,D,init_state) {WKV_CASES}"
+            f"shapes (B,S,H,D,init_state) {WKV_CASES} and {WKV_EDGE} with "
+            f"decays of exactly 0 and 1 in half the channels"
             f"{' (w bf16 and f32)' if len(wdtypes) > 1 else ''}: max abs "
             f"err {[f'{e:.3e}' for e in errs]} (tol {KERNEL_TOL[tname]}), "
             f"state {[f'{e:.3e}' for e in st_errs]} (tol {STATE_TOL})")
@@ -810,15 +847,17 @@ def llama_path(dev) -> int:
     return launches
 
 
-def rwkv_path(dev) -> int:
+def rwkv_path(dev) -> dict:
     """Phase 10: rwkv6-1.6b at full width.  Returns the WKV6 launches of
-    one serve run (counts set to 0 just before it)."""
+    one ``make_prefill_step`` call and of one serve run (counts set to 0
+    just before each)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import wkv6 as wkv6_mod
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import build_model
 
     cfg = get_config(RWKV)
@@ -826,6 +865,44 @@ def rwkv_path(dev) -> int:
     m_cuda, m_xla = build_model(cfg_cuda), build_model(cfg_xla)
     gen = torch.Generator(dev).manual_seed(0)
     params = m_cuda.init(gen, torch.float32, dev)
+
+    # ------------------------------------------ make_prefill_step B=2 S=4096
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), device=dev,
+                           generator=gen)
+    step_cuda = make_prefill_step(m_cuda)
+    step_xla = make_prefill_step(m_xla)
+    wkv6.launches = 0
+    with plain_refused(wkv6_mod, "wkv6_torch"):
+        got, t_cuda = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    step_launches = wkv6.launches
+    if step_launches != cfg.n_layers:
+        raise AssertionError(f"{step_launches} wkv6 launches in a prefill "
+                             f"step of {cfg.n_layers} layers")
+    # the plain route walks 4,096 steps a layer from the host: one run
+    want, t_xla = timed(lambda: step_xla(params, {"tokens": tokens}))
+    if got.shape != (PREFILL_B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **MODEL_TOL,
+                               msg=lambda m: f"rwkv prefill cuda vs xla: {m}")
+    del got, want
+    _, t_cuda_warm = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    wall, busy, count, top = device_profile(
+        lambda: step_cuda(params, {"tokens": tokens}))
+    log(f"profile {RWKV} make_prefill_step cuda: wall {wall * 1e3:.1f} ms "
+        f"under the profiler, device busy {busy * 1e3:.1f} ms "
+        f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
+        f"{top}")
+    log(f"phase 10 {RWKV} make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
+        f"{step_launches} wkv6 launches; last-position logits cuda vs xla "
+        f"max abs {err:.3e} (tol {MODEL_TOL}); step {t_cuda_warm * 1e3:.1f} "
+        f"ms cuda (first run {t_cuda * 1e3:.1f} ms), {t_xla * 1e3:.1f} ms "
+        f"xla, {PREFILL_B * PREFILL_S / t_cuda_warm:.0f} tok/s")
+    del tokens
+    free_model(f"phase 10 {RWKV} prefill step")
+
+    # ------------------------------------ serve B=4, prompt 512, 32 tokens
     prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
                             generator=gen)
     first = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
@@ -878,7 +955,7 @@ def rwkv_path(dev) -> int:
     decode_profile(m_cuda, params, prompts, RWKV)
     del params, first, res
     free_model(f"phase 10 {RWKV}")
-    return launches
+    return {"prefill_step": step_launches, "serve": launches}
 
 
 def zamba_path(dev) -> dict:
@@ -1034,16 +1111,14 @@ def zamba_path(dev) -> dict:
     return {"prefill_step": step_launches, "serve": serve_launches}
 
 
-def serving_kernel_records(dev, launches: dict, path_err: dict,
-                           occupancy: dict) -> list:
-    """Phase 11: times and bounds of the two serving kernels at their path
-    shapes, in f32 as the serving path runs them."""
+def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
+    """Phase 11 for flash attention: times and bounds at llama3.2-1b's
+    prefill-step shape, in f32 as the path runs it (bf16 beside it)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_hm,
                                                      flash_attention_hm_torch)
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_torch
 
     gen = torch.Generator(dev).manual_seed(7)
     B, H, Hkv, S, _, D, _ = FLASH_PATH
@@ -1060,6 +1135,7 @@ def serving_kernel_records(dev, launches: dict, path_err: dict,
         "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps=7, inner=5),
     }
+    del flush
     qb, kb, vb = (x.bfloat16() for x in (q, k, v))
     fa["ms_bf16"] = event_ms(lambda: flash_attention_hm(qb, kb, vb), reps=7,
                              inner=5)
@@ -1071,61 +1147,29 @@ def serving_kernel_records(dev, launches: dict, path_err: dict,
     exps = B * H * S * (S + 1) // 2                    # one per visible score
     nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
     # at f32 accuracy the products run at 3xTF32's rate; SIMT f32 beside it
-    fa_bound = (flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
-    fa["bound_ms_simt"] = max(flops / F32_FLOP_PER_S,
-                              nbytes / HBM_BYTES_PER_S) * 1e3
+    ops_s, bytes_s = flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    fa["bound_ms_simt"] = max(flops / F32_FLOP_PER_S, bytes_s) * 1e3
     # bf16: the products on the bf16 tensor cores and the exponentials on
     # the SFUs, each a bound, and half the bytes
     fa["bound_ms_bf16"] = max(flops / BF16_FLOP_PER_S, exps / SFU_EXP_PER_S,
                               nbytes / 2 / HBM_BYTES_PER_S) * 1e3
     fa["replaced_ms"] = REPLACED_MS["flash_attention_hm"]
-
-    B, S, H, D, _ = WKV_PATH
-    r, kk, vv = (torch.randn((B, S, H, D), generator=gen, device=dev)
-                 for _ in range(3))
-    w = torch.sigmoid(torch.randn((B, S, H, D), generator=gen, device=dev))
-    u = 0.1 * torch.randn((H, D), generator=gen, device=dev)
-    s0 = torch.zeros((B, H, D, D), device=dev)   # a fresh serve cache's
-    wk = {
-        "ms": event_ms(lambda: wkv6(r, kk, vv, w, u, s0), reps=15, inner=10),
-        "ms_cold_l2": event_ms(lambda: wkv6(r, kk, vv, w, u, s0),
-                               flush=flush, reps=15, inner=10),
-        "plain_ms": event_ms(lambda: wkv6_torch(r, kk, vv, w, u, s0),
-                             reps=5, inner=2),
-        "library_ms": None,
-    }
-    del flush
-    # r . S, k v and the decay a (step, d, e); r u k summed and v * bonus
-    # added a (step, d)
-    wops = 5 * B * S * H * D * (D + 1)
-    wbytes = 4 * (5 * B * S * H * D + H * D + 2 * B * H * D * D)
-    wk_bound = (wops / F32_FLOP_PER_S, wbytes / HBM_BYTES_PER_S)
-
-    recs = []
-    for name, src, ref, t, (ops_s, bytes_s), rate, extra in (
-            ("flash_attention_hm", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:76", fa, fa_bound,
-             "165 TFLOP/s (3xTF32)",
-             {"shape": f"q {list(fa_q)} k/v {list(fa_kv)} f32 causal",
-              "flops": flops, "exps": exps, "bytes": nbytes,
-              **occupancy["flash_attention_hm"]}),
-            ("wkv6", "src/repro_torch/csrc/wkv6.cu",
-             "src/repro/kernels/wkv6.py:62", wk, wk_bound, "67 TFLOP/s",
-             {"shape": f"r/k/v/w {list(r.shape)} f32, init_state "
-                       f"{list(s0.shape)}", "flops": wops, "bytes": wbytes})):
-        recs.append({
-            "name": name, "route": "cuda", "source": src, "replaces": ref,
-            "launches": launches[name], "matched": True,
-            "max_abs_err": path_err[name],
-            **t, "bound_ms": max(ops_s, bytes_s) * 1e3,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-            **extra})
-        log(f"phase 11 {name} ({extra['shape']}): kernel {t['ms']:.4f} ms "
-            f"(cold L2 {t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} "
-            f"ms, library {t['library_ms']}, bound "
-            f"{max(ops_s, bytes_s) * 1e3:.4f} ms ({extra['flops']} flop at "
-            f"{rate}: {ops_s * 1e3:.4f} ms; {extra['bytes']} bytes at "
-            f"3.35 TB/s: {bytes_s * 1e3:.4f} ms)")
+    shape = f"q {list(fa_q)} k/v {list(fa_kv)} f32 causal"
+    rec = {
+        "name": "flash_attention_hm", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:76",
+        "launches": launches, "matched": True,
+        "max_abs_err": path_err["flash_attention_hm"],
+        **fa, "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "shape": shape, "flops": flops, "exps": exps, "bytes": nbytes,
+        **occupancy["flash_attention_hm"]}
+    log(f"phase 11 flash_attention_hm ({shape}): kernel {fa['ms']:.4f} ms "
+        f"(cold L2 {fa['ms_cold_l2']:.4f} ms), plain {fa['plain_ms']:.4f} "
+        f"ms, library {fa['library_ms']}, bound {rec['bound_ms']:.4f} ms "
+        f"({flops} flop at 165 TFLOP/s (3xTF32): {ops_s * 1e3:.4f} ms; "
+        f"{nbytes} bytes at 3.35 TB/s: {bytes_s * 1e3:.4f} ms)")
     log(f"phase 11 flash_attention_hm: SIMT f32 bound "
         f"{fa['bound_ms_simt']:.4f} ms; bf16 kernel {fa['ms_bf16']:.4f} ms, "
         f"scaled_dot_product_attention bf16 {fa['library_ms_bf16']:.4f} ms, "
@@ -1133,7 +1177,84 @@ def serving_kernel_records(dev, launches: dict, path_err: dict,
         f"{SFU_EXP_PER_S:.4g}/s: {exps / SFU_EXP_PER_S * 1e3:.4f} ms; flop at "
         f"989 TFLOP/s: {flops / BF16_FLOP_PER_S * 1e3:.4f} ms); replaced "
         f"SIMT kernel {fa['replaced_ms']} ms")
-    return recs
+    return rec
+
+
+def wkv6_inputs(dev, gen, case):
+    """f32 r, k, v, w, u and the state of a WKV6 path shape: a fresh serve
+    cache's zero state where the path passes one, else None."""
+    import torch
+
+    B, S, H, D, with_state = case
+    r, k, v = (torch.randn((B, S, H, D), generator=gen, device=dev)
+               for _ in range(3))
+    w = torch.sigmoid(torch.randn((B, S, H, D), generator=gen, device=dev))
+    u = 0.1 * torch.randn((H, D), generator=gen, device=dev)
+    s0 = torch.zeros((B, H, D, D), device=dev) if with_state else None
+    return r, k, v, w, u, s0
+
+
+def wkv6_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
+    """Phase 11 for WKV6: times and bounds at the serve prefill's shape
+    (with the fresh cache's zero state) and at ``make_prefill_step``'s (no
+    state), in f32 as the path runs them; the kernel must beat the one it
+    replaced at both."""
+    import torch
+
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_torch
+
+    gen = torch.Generator(dev).manual_seed(8)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    out = {}
+    for key, case, plain_reps in (("serve", WKV_PATH, (5, 2)),
+                                  ("prefill_step", WKV_PREFILL, (3, 1))):
+        B, S, H, D, with_state = case
+        args = wkv6_inputs(dev, gen, case)
+        t = {
+            "ms": event_ms(lambda: wkv6(*args), reps=15, inner=10),
+            "ms_cold_l2": event_ms(lambda: wkv6(*args), flush=flush,
+                                   reps=15, inner=10),
+            "plain_ms": event_ms(lambda: wkv6_torch(*args),
+                                 reps=plain_reps[0], inner=plain_reps[1]),
+        }
+        # r . S, k v and the decay a (step, d, e); r u k summed and v *
+        # bonus added a (step, d)
+        flops = 5 * B * S * H * D * (D + 1)
+        nbytes = 4 * (5 * B * S * H * D + H * D
+                      + (2 if with_state else 1) * B * H * D * D)
+        ops_s, bytes_s = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        t.update({
+            "launches": launches[key], "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "replaced_ms": REPLACED_MS["wkv6"][key],
+            "shape": f"r/k/v/w {[B, S, H, D]} f32, init_state {with_state}",
+            "flops": flops, "bytes": nbytes,
+            "max_abs_err": path_err["wkv6" if key == "serve"
+                                    else f"wkv6 {key}"],
+            "blocks": occupancy["wkv6"]["blocks"][key],
+            "waves": occupancy["wkv6"]["waves"][key]})
+        out[key] = t
+        log(f"phase 11 wkv6 ({t['shape']}): kernel {t['ms']:.4f} ms (cold L2 "
+            f"{t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+            f"library None, bound {t['bound_ms']:.4f} ms ({flops} flop at "
+            f"67 TFLOP/s: {ops_s * 1e3:.4f} ms; {nbytes} bytes at 3.35 TB/s: "
+            f"{bytes_s * 1e3:.4f} ms), the bound {t['bound_ms'] / t['ms']:.1%}"
+            f" of the kernel's time; replaced kernel {t['replaced_ms']} ms; "
+            f"{launches[key]} launches in one {key.replace('_', ' ')}")
+        if not t["ms"] < t["replaced_ms"]:
+            raise AssertionError(f"wkv6 at the {key} shape: {t['ms']} ms, "
+                                 f"the kernel it replaced "
+                                 f"{t['replaced_ms']} ms")
+        del args
+    del flush
+    occ = {k: v for k, v in occupancy["wkv6"].items()
+           if k not in ("blocks", "waves")}
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:62", "matched": True,
+            **out["serve"],
+            "library_ms": None, "at_prefill_step": out["prefill_step"],
+            **occ}
 
 
 def ssd_least_flops(B: int, S: int, H: int, P: int, N: int) -> int:
@@ -1219,13 +1340,14 @@ def hmma_count(library: Path) -> int:
     return sum("HMMA" in line for line in sass.splitlines())
 
 
-def tensor_core_report(libraries: dict) -> dict:
+def occupancy_report(libraries: dict) -> dict:
     """Phase 2, continued: the HMMA count of every kernel's SASS (the
-    tensor-core kernels must have some) and, for those kernels, what they
-    occupy on the card.  Returns ``{record name: {...}}`` for phase 11."""
+    tensor-core kernels must have some) and, for the serving kernels, what
+    they occupy on the card at their path shapes (none may spill).
+    Returns ``{record name: {...}}`` for phase 11."""
     import torch
 
-    from repro_torch.kernels import flash_attention, ssd
+    from repro_torch.kernels import flash_attention, ssd, wkv6
 
     counts = {n: hmma_count(p) for n, p in libraries.items()}
     log(f"phase 2 SASS (cuobjdump -sass | grep -c HMMA): {counts}")
@@ -1235,7 +1357,8 @@ def tensor_core_report(libraries: dict) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     # grids: ssd a block per (b, h, 32 columns of P), flash a block per
-    # (b, h, 64 query rows)
+    # (b, h, 64 query rows), wkv6 a block per (b, h, 32 state columns)
+    wkv_blocks = WKV_PATH[3] // WKV_BLOCK_COLUMNS
     for rec, lib, occ, blocks in (
             ("ssd", "ssd", ssd.occupancy(torch.float32),
              {"serve": SSD_PATH[0] * SSD_PATH[2] * 2,
@@ -1243,7 +1366,10 @@ def tensor_core_report(libraries: dict) -> dict:
             ("flash_attention_hm", "flash_attention",
              flash_attention.occupancy(torch.float32, 64),
              {"prefill_step": -(-FLASH_PATH[3] // 64) * FLASH_PATH[0]
-              * FLASH_PATH[1]})):
+              * FLASH_PATH[1]}),
+            ("wkv6", "wkv6", wkv6.occupancy(torch.float32, torch.float32, 64),
+             {"serve": WKV_PATH[0] * WKV_PATH[2] * wkv_blocks,
+              "prefill_step": WKV_PREFILL[0] * WKV_PREFILL[2] * wkv_blocks})):
         waves = {k: round(v / (occ["blocks_per_sm"] * sms), 3)
                  for k, v in blocks.items()}
         out[rec] = {"hmma": counts[lib], **occ, "blocks": blocks,
@@ -1257,6 +1383,11 @@ def tensor_core_report(libraries: dict) -> dict:
     extra = {f"{dt} D={d}": flash_attention.occupancy(dt, d)
              for dt in (torch.float32, torch.bfloat16) for d in (64, 128)}
     extra["ssd bf16"] = ssd.occupancy(torch.bfloat16)
+    for dt, wdt in ((torch.bfloat16, torch.bfloat16),
+                    (torch.bfloat16, torch.float32)):
+        for d in (64, 128):
+            extra[f"wkv6 {dt} w {wdt} D={d}"] = wkv6.occupancy(dt, wdt, d)
+    extra["wkv6 f32 D=128"] = wkv6.occupancy(torch.float32, torch.float32, 128)
     log(f"phase 2 other variants (registers, spills, shared bytes, blocks "
         f"an SM): " + "; ".join(
             f"{k}: {v['registers']}, {v['local_bytes']}, "
@@ -1270,11 +1401,17 @@ def tensor_core_report(libraries: dict) -> dict:
     return out
 
 
-def ablation(dev, card) -> dict:
+def ablation(dev, card, replaced: Path | None = None) -> dict:
     """``--ablation``: ``ssd`` (f32) and ``flash_attention_hm`` (f32 and
-    bf16) at zamba2-7b's and llama3.2-1b's prefill-step shapes, each built
-    as it is and with each part of ``ABLATIONS`` taken out (staging only
-    in ``ssd``), timed through their wrappers with CUDA events."""
+    bf16) at zamba2-7b's and llama3.2-1b's prefill-step shapes, and
+    ``wkv6`` (f32) at rwkv6-1.6b's serve and prefill-step shapes, each
+    built as it is and with each part of ``ABLATIONS`` that it reads
+    (``ABLATED``) taken out, timed through their wrappers with CUDA
+    events.  With
+    ``--replaced DIR``, the ``wkv6`` kernel of the checkout at ``DIR`` is
+    built too and timed beside this one, in turns (replaced, this, this,
+    replaced)."""
+    import ctypes
     import unittest.mock
 
     import torch
@@ -1283,13 +1420,22 @@ def ablation(dev, card) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd as sd
+    from repro_torch.kernels import wkv6 as wk
 
-    modules = {"ssd": sd, "flash_attention": fa}
-    jobs = [(v, n) for v in ABLATIONS for n in modules
-            if not (v == "no staging" and n != "ssd")]
+    modules = {"ssd": sd, "flash_attention": fa, "wkv6": wk}
+    jobs = [(v, n) for v in ABLATIONS for n in ABLATED[v]]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         list(ex.map(lambda j: build.compile_library(j[1], ABLATIONS[j[0]]),
                     jobs))
+    old = None
+    if replaced is not None:
+        # that checkout's source, and its headers on the include path
+        csrc = replaced.resolve() / "src" / "repro_torch" / "csrc"
+        flags = list(build.NVCC_FLAGS)
+        flags[flags.index("-I") + 1] = str(csrc)
+        with unittest.mock.patch.object(build, "CSRC", csrc), \
+                unittest.mock.patch.object(build, "NVCC_FLAGS", tuple(flags)):
+            old = wk._bind(ctypes.CDLL(str(build.compile_library("wkv6"))))
     gen = torch.Generator(dev).manual_seed(9)
     B, S, H, P, N, chunk, _ = SSD_PREFILL
     ssd_args = (torch.randn((B, S, H, P), generator=gen, device=dev),
@@ -1301,6 +1447,8 @@ def ablation(dev, card) -> dict:
     qkv = [torch.randn(shape, generator=gen, device=dev) for shape in
            ((B, H, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
     qkv_bf16 = [t.bfloat16() for t in qkv]
+    wkv_serve = wkv6_inputs(dev, gen, WKV_PATH)
+    wkv_prefill = wkv6_inputs(dev, gen, WKV_PREFILL)
     cases = {
         "ssd float32": ("ssd", lambda: sd.ssd(*ssd_args, chunk=chunk)),
         "flash_attention_hm float32": (
@@ -1309,17 +1457,21 @@ def ablation(dev, card) -> dict:
         "flash_attention_hm bfloat16": (
             "flash_attention",
             lambda: fa.flash_attention_hm(*qkv_bf16, causal=causal)),
+        "wkv6 float32 serve": ("wkv6", lambda: wk.wkv6(*wkv_serve)),
+        "wkv6 float32 prefill_step": ("wkv6", lambda: wk.wkv6(*wkv_prefill)),
     }
     out = {"card": card, "ms": {}}
     for key, (name, call) in cases.items():
-        for variant, defines in ABLATIONS.items():
-            if (variant, name) not in jobs:
-                continue
-            lib = modules[name]._lib(defines)
+        variants = [(v, modules[name]._lib(d)) for v, d in ABLATIONS.items()
+                    if (v, name) in jobs]
+        if name == "wkv6" and old is not None:
+            variants = [("replaced", old), variants[0], variants[0],
+                        ("replaced", old)] + variants[1:]
+        for variant, lib in variants:
             with unittest.mock.patch.object(modules[name], "_lib",
                                             lambda: lib):
                 ms = event_ms(call, reps=9, inner=5)
-            out["ms"].setdefault(key, {})[variant] = ms
+            out["ms"].setdefault(key, {}).setdefault(variant, []).append(ms)
             log(f"ablation {key} {variant}: {ms:.4f} ms on {card}")
     return out
 
@@ -1348,8 +1500,15 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
-    if sys.argv[1:] == ["--ablation"]:
-        log(json.dumps(ablation(dev, card)))
+    if sys.argv[1:2] == ["--ablation"]:
+        args = sys.argv[2:]
+        if args not in ([],) and not (len(args) == 2
+                                     and args[0] == "--replaced"):
+            print("usage: chip_smoke.py [--ablation [--replaced DIR]]",
+                  file=sys.stderr)
+            return 2
+        log(json.dumps(ablation(dev, card,
+                                Path(args[1]) if args else None)))
         return 0
 
     # ------------------------------------------------------------ 2. build
@@ -1367,14 +1526,15 @@ def main() -> int:
     log(f"phase 2 build: {len(KERNELS)} kernels in parallel in "
         f"{time.perf_counter() - t0:.3f} s: " + ", ".join(
             f"{p.name} {s:.3f} s" for p, s in built.values()))
-    occupancy = tensor_core_report({n: p for n, (p, _) in built.items()})
+    occupancy = occupancy_report({n: p for n, (p, _) in built.items()})
 
     records = [edt_path(dev, card)]
     path_err = check_kernels(dev)
-    launches = {"flash_attention_hm": llama_path(dev),
-                "wkv6": rwkv_path(dev)}
+    flash_launches = llama_path(dev)
+    wkv6_launches = rwkv_path(dev)
     ssd_launches = zamba_path(dev)
-    records += serving_kernel_records(dev, launches, path_err, occupancy)
+    records.append(flash_record(dev, flash_launches, path_err, occupancy))
+    records.append(wkv6_record(dev, wkv6_launches, path_err, occupancy))
     records.append(ssd_record(dev, ssd_launches, path_err, occupancy))
     for r in records:
         for ms, bound in (("ms", "bound_ms"), ("ms_bf16", "bound_ms_bf16")):

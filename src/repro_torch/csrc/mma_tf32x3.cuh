@@ -1,6 +1,7 @@
 // f32-accurate products on Hopper's tensor cores: the 3xTF32 split, thin
 // wrappers for the warp-level mma.sync tile and the warpgroup wgmma tiles,
-// and cp.async copies.  Shared by ssd.cu and flash_attention.cu.
+// and cp.async copies.  Shared by ssd.cu and flash_attention.cu; wkv6.cu
+// takes only its cp.async copies and the staging switch.
 //
 // The split.  A TF32 tensor-core product reads the top 19 bits of each
 // operand (sign, 8 exponent bits, 10 of mantissa).  Each f32 operand a
@@ -64,7 +65,9 @@ namespace tf32x3 {
 //   REPRO_ABLATE_PRODUCTS     no mma or wgmma runs (the operands are still
 //                             loaded and split: a test on their bits that
 //                             never holds keeps them live);
-//   REPRO_ABLATE_STAGING      (ssd) no chunk after the first is loaded.
+//   REPRO_ABLATE_STAGING      (ssd) no chunk after the first is loaded;
+//                             (wkv6) no stretch after the first three
+//                             (one a stage) is loaded.
 #ifdef REPRO_ABLATE_SMALL_TERMS
 constexpr bool kSmallTerms = false;
 #else

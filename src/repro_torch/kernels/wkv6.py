@@ -7,6 +7,11 @@
 (batch, head)::
 
     out_t = r_t · (S + u ⊙ k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
+
+The kernel splits each head's state over blocks and threads and sums
+``r_t · S`` in another order than :func:`wkv6_torch` (its note says
+which); its decay is one FMA, where the plain version rounds ``w S`` and
+``k vᵀ`` before adding them.
 """
 from __future__ import annotations
 
@@ -77,16 +82,20 @@ def _check_cuda(r, k, v, w, u, init_state) -> None:
                          f"not {r.shape[-1]}")
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    from .build import load
-
-    lib = load("wkv6")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signature of its ``wkv6`` entry point."""
     # every pointer and the stream as c_void_p (ctypes cuts untyped ints)
     lib.wkv6.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.wkv6.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    from .build import load
+
+    return _bind(load("wkv6", defines))
 
 
 def wkv6(r, k, v, w, u, init_state=None, *, chunk: int = 64):
@@ -122,3 +131,14 @@ def wkv6(r, k, v, w, u, init_state=None, *, chunk: int = 64):
 
 
 wkv6.launches = 0
+
+
+def occupancy(dtype=torch.float32, wdtype=torch.float32,
+              head_dim: int = 64) -> dict:
+    """Registers, spills, shared memory and blocks an SM of the kernel for
+    streams in ``dtype``, the decay in ``wdtype`` and ``head_dim`` on the
+    current card (see :func:`.build.occupancy`)."""
+    from .build import occupancy as query
+
+    return query(_lib().wkv6_occupancy, _DTYPES[dtype], _DTYPES[wdtype],
+                 head_dim)
