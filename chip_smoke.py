@@ -6,7 +6,8 @@
 Drives the port's main paths and checks every result.  The EDT path:
 polyhedral program, index graph, wavefront schedule, counted-sync sweeps
 on the card and fused stencil tiles, at the size of the reference's
-acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks).
+acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks),
+and the same graph split over ranks by the distributed engine.
 The serving path: llama3.2-1b, rwkv6-1.6b and zamba2-7b (Mamba2 + shared
 attention) at full width and depth, f32 weights drawn from a seed.
 
@@ -27,22 +28,32 @@ attention) at full width and depth, f32 weights drawn from a seed.
    ``handwritten_solve`` and the NumPy ``reference_solve``, and in float64
    at small sizes;
 7. EDT phase times, the wavefront kernel's times and a profile per sweep;
-8. flash attention, WKV6 and SSD against their plain torch versions on
+8. the distributed rank engine (``run_distributed``) on the same graph:
+   the device engine at 2 and 4 ranks (every rank on the one card,
+   stepping through ``wavefront_step``), byte-identical to the host
+   schedule and the discover sweep, one kernel launch a superstep of a
+   rank with local edges, one message a cross-rank edge, and in a third
+   run the kernel held byte for byte against its plain version on every
+   rank's every frontier (outside the counted runs); the NumPy engine
+   inline and over two spawned processes, byte-identical; a rank crash
+   and a lost message batch recovered byte-identical, and the loss
+   without a retry policy refused as a stall; a profile of a warm run;
+9. flash attention, WKV6 and SSD against their plain torch versions on
    the card, in f32 and bf16, at the reference's test shapes (SSD's
    state handoff too) and at the serving path's shapes (WKV6's also with
    decays of exactly 0 and 1, a sequence shorter than its stretch and
    D=128);
-9. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
+10. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
    kernel (one launch a layer) against the same step on the plain chunked
    attention; the serve loop (B=4, prompt 512, 32 tokens); incremental
    decode against the full forward;
-10. rwkv6-1.6b: ``make_prefill_step`` at B=2, S=4096 through the WKV6
+11. rwkv6-1.6b: ``make_prefill_step`` at B=2, S=4096 through the WKV6
     kernel (one launch a layer) against the same step on the plain
     recurrence; the serve loop at the same sizes as llama's (one WKV6
     launch a layer in prefill); prefill logits and every layer's final
     state against the plain recurrence; incremental decode against the
     full forward;
-11. kernel times (CUDA events, median, warm and with L2 flushed),
+12. kernel times (CUDA events, median, warm and with L2 flushed),
     plain-version times, the time of one PyTorch call computing the same
     function where there is one, the least time the card could take (for
     the tensor-core kernels at the rate of their accuracy, 3xTF32 for f32,
@@ -50,7 +61,7 @@ attention) at full width and depth, f32 weights drawn from a seed.
     WKV6 faster than the kernel it replaced at both its shapes, and a
     ``kernels`` JSON line with each kernel's launches on its main paths
     (counts set to 0 just before each path and read just after);
-12. zamba2-7b (68 Mamba2 layers, one shared attention+MLP block applied
+13. zamba2-7b (68 Mamba2 layers, one shared attention+MLP block applied
     13 times, 5,736,919,872 parameters): ``make_prefill_step`` at B=2,
     S=4096 through the SSD kernel (one launch a Mamba2 layer) against the
     same step on the plain chunked scan; the serve loop (B=4, prompt 512,
@@ -58,7 +69,7 @@ attention) at full width and depth, f32 weights drawn from a seed.
     cache against the plain route; teacher-forced decode against the full
     forward; and the 4,096-slot ring cache (B=1, a prompt of exactly the
     window, 32 tokens, decode wrapping from its first step) against the
-    full windowed forward.  Phase 12 runs before phase 11.
+    full windowed forward.  Phase 13 runs before phase 12.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -302,8 +313,8 @@ def device_profile(fn):
 
 
 def edt_path(dev, card) -> dict:
-    """Phases 3 to 7, the EDT path.  Returns the wavefront kernel's record
-    (its launches counted over phases 4 to 6)."""
+    """Phases 3 to 8, the EDT path.  Returns the wavefront kernel's record
+    (its launches counted over phases 4 to 6 and phase 8's device runs)."""
     import torch
 
     from repro_torch.core.edt import (DeviceExecutor, FusedExecutor,
@@ -526,20 +537,175 @@ def edt_path(dev, card) -> dict:
         log(f"profile {label}: wall {wall:.3f} s under the profiler, device "
             f"busy {busy:.4f} s ({100 * busy / wall:.1f}%) in {count} "
             f"kernels; top (name, ms): {top}")
+    rank_launches, rank_steps, rank_err = rank_path(dev, ig, sched,
+                                                    run.level_of, check_step)
+    max_err = max(max_err, rank_err)
     return {
         "name": "wavefront_step", "route": "cuda",
         "source": "src/repro_torch/csrc/wavefront_step.cu",
         "replaces": "src/repro/core/edt/device.py:225",
-        "launches": main_launches, "matched": True,
-        "frontiers_checked": steps, "max_abs_err": max_err,
+        "launches": main_launches + sum(rank_launches.values()),
+        "launches_rank_engine": rank_launches, "matched": True,
+        "frontiers_checked": steps + rank_steps, "max_abs_err": max_err,
         "ms": step_ms, "ms_cold_l2": step_cold_ms, "plain_ms": plain_ms,
         "host_us": step_host_us,
         "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
     }
 
 
+def rank_path(dev, ig, sched, disc_level_of, check_step):
+    """Phase 8: the distributed rank engine on the slice's graph.  Returns
+    ``wavefront_step``'s launches in the first device run at each rank
+    count (the count set to 0 just before each run, read just after), the
+    rank frontiers on which the kernel was held against its plain version
+    (``check_step``) and the largest difference there."""
+    import importlib
+
+    from repro_torch.core.edt import (MESSAGE_LOSS, RANK_CRASH, Fault,
+                                      FaultPlan, RetryPolicy, StallError,
+                                      partition_graph, run_distributed)
+    from repro_torch.core.edt.device import wavefront_step
+
+    dist_mod = importlib.import_module("repro_torch.core.edt.distributed")
+
+    want = sched.level_of.tobytes()
+    if disc_level_of.tobytes() != want:
+        raise AssertionError("discover level_of differs from the host "
+                             "schedule")
+
+    def check(run, label, cross):
+        if run.level_of.tobytes() != want:
+            raise AssertionError(f"{label}: level_of differs from the host "
+                                 "schedule and the discover sweep")
+        if len(run.levels) != sched.depth or any(
+                not np.array_equal(x, y) for x, y in zip(run.levels,
+                                                          sched.levels)):
+            raise AssertionError(f"{label}: levels differ from the host "
+                                 "schedule")
+        st = run.rank_stats
+        if sum(s.started for s in st) != ig.n:
+            raise AssertionError(f"{label}: {sum(s.started for s in st)} "
+                                 f"tasks started, want {ig.n}")
+        msgs = sum(s.msgs_out for s in st)
+        if msgs != cross or sum(s.msgs_in for s in st) != cross:
+            raise AssertionError(f"{label}: {msgs} messages, want the "
+                                 f"{cross} cross-rank edges")
+        return (f"supersteps {[s.supersteps for s in st]}, messages {msgs} "
+                f"in {sum(s.batches_out for s in st)} batches, ranks' loop "
+                f"{max(s.seconds for s in st):.3f} s")
+
+    launches, cross_of, warm_of = {}, {}, {}
+    rank_steps, rank_err = 0, 0
+    for ranks in (2, 4):
+        t0 = time.perf_counter()
+        slices = partition_graph(ig, ranks)
+        t_part = time.perf_counter() - t0
+        cross_of[ranks] = cross = sum(int(sl.r_tgt.size) for sl in slices)
+        edged = [sl.rank for sl in slices if sl.l_tgt.size]
+        wavefront_step.launches = 0
+        run, t_first = timed(lambda: run_distributed(
+            ig, ranks=ranks, engine="device", device=dev))
+        launches[f"ranks_{ranks}"] = n_launch = wavefront_step.launches
+        line = check(run, f"device engine, {ranks} ranks", cross)
+        steps = sum(run.rank_stats[k].supersteps for k in edged)
+        if n_launch != steps:
+            raise AssertionError(f"{n_launch} kernel launches for {steps} "
+                                 "supersteps of ranks with local edges")
+        warm_of[ranks], t_warm = timed(lambda: run_distributed(
+            ig, ranks=ranks, engine="device", device=dev))
+        check(warm_of[ranks], f"warm device engine, {ranks} ranks", cross)
+        # kernel == plain version on every rank's every frontier of a
+        # third run, outside the counted window: each engine's step goes
+        # through check_step on the same (indeg, frontier, dec_src,
+        # dec_ptr) the run gives the kernel
+        checked = {"steps": 0, "err": 0, "shapes": set()}
+
+        def checked_step(indeg, frontier, src, ptr):
+            out, err = check_step(indeg, frontier, src, ptr,
+                                  f"{ranks}-rank frontier {checked['steps']}")
+            checked["steps"] += 1
+            checked["err"] = max(checked["err"], err)
+            checked["shapes"].add((indeg.numel(), src.numel()))
+            return out
+
+        saved, dist_mod.wavefront_step = dist_mod.wavefront_step, checked_step
+        try:
+            krun = run_distributed(ig, ranks=ranks, engine="device",
+                                   device=dev)
+        finally:
+            dist_mod.wavefront_step = saved
+        check(krun, f"checked device engine, {ranks} ranks", cross)
+        if checked["steps"] != sum(s.supersteps for s in krun.rank_stats):
+            raise AssertionError(f"{checked['steps']} checked steps for "
+                                 f"{ranks} ranks' supersteps")
+        rank_steps += checked["steps"]
+        rank_err = max(rank_err, checked["err"])
+        log(f"phase 8 device engine, {ranks} ranks: level_of byte-identical "
+            f"to the host schedule and discover; partition {t_part:.3f} s; "
+            f"run {t_first:.3f} s (warm {t_warm:.3f}); {line}; kernel "
+            f"launches {n_launch} == supersteps of ranks with local edges "
+            f"{steps}; kernel == plain version on all {checked['steps']} "
+            f"rank frontiers at (n, E) {sorted(checked['shapes'])}, max_abs_err "
+            f"{checked['err']}")
+    for label, kw in (("numpy engine inline", {"transport": "inline"}),
+                      ("numpy engine, 2 spawned processes",
+                       {"transport": "processes", "start_method": "spawn",
+                        "timeout": 120.0})):
+        t0 = time.perf_counter()
+        nrun = run_distributed(ig, ranks=2, engine="numpy", **kw)
+        t_run = time.perf_counter() - t0
+        line = check(nrun, label, cross_of[2])
+        if nrun.level_of.tobytes() != warm_of[2].level_of.tobytes():
+            raise AssertionError(f"{label}: differs from the device engine")
+        log(f"phase 8 {label}, 2 ranks: byte-identical to the device "
+            f"engine; run {t_run:.3f} s; {line}")
+
+    policy = RetryPolicy(max_retries=3, base_delay=0.001)
+    crash = FaultPlan(faults=(Fault(kind=RANK_CRASH, index=1, times=1),))
+    crun, t_crash = timed(lambda: run_distributed(
+        ig, ranks=2, engine="device", device=dev, faults=crash,
+        recovery=policy))
+    check(crun, "rank crash recovered", cross_of[2])
+    if crun.attempts != 1 or [f[0] for f in crash.fired] != [RANK_CRASH]:
+        raise AssertionError(f"rank crash: {crun.attempts} attempts, fired "
+                             f"{crash.fired}")
+    loss = FaultPlan(faults=(Fault(kind=MESSAGE_LOSS, round=0, index=1,
+                                   times=1),))
+    t0 = time.perf_counter()
+    try:
+        run_distributed(ig, ranks=2, engine="device", device=dev, faults=loss)
+    except StallError as e:
+        report = e.report
+    else:
+        raise AssertionError("a lost message batch without a retry policy "
+                             "did not stall")
+    t_stall = time.perf_counter() - t0
+    if not report.undrained or "decrement" not in report.note:
+        raise AssertionError(f"message-loss stall report: {report.summary()}")
+    loss = FaultPlan(faults=loss.faults)
+    lrun, t_loss = timed(lambda: run_distributed(
+        ig, ranks=2, engine="device", device=dev, faults=loss,
+        recovery=policy))
+    check(lrun, "message loss recovered", cross_of[2])
+    if lrun.attempts != 1 or [f[0] for f in loss.fired] != [MESSAGE_LOSS]:
+        raise AssertionError(f"message loss: {lrun.attempts} attempts, "
+                             f"fired {loss.fired}")
+    log(f"phase 8 faults, device engine, 2 ranks: rank crash recovered in "
+        f"{crun.attempts} retry, byte-identical ({t_crash:.3f} s); message "
+        f"loss without a policy: StallError after {t_stall:.3f} s, "
+        f"{len(report.undrained)} undrained counter(s) named, note "
+        f"{report.note!r}; with the policy recovered in {lrun.attempts} "
+        f"retry, byte-identical ({t_loss:.3f} s)")
+    wall, busy, count, top = device_profile(lambda: run_distributed(
+        ig, ranks=2, engine="device", device=dev))
+    log(f"profile device engine, 2 ranks: wall {wall:.3f} s under the "
+        f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}%) in "
+        f"{count} kernels; top (name, ms): {top}")
+    return launches, rank_steps, rank_err
+
+
 def check_kernels(dev) -> dict:
-    """Phase 8: the three serving kernels against their plain versions on
+    """Phase 9: the three serving kernels against their plain versions on
     the card.  Returns the max abs error at each kernel's path shape
     (f32)."""
     import torch
@@ -576,7 +742,7 @@ def check_kernels(dev) -> dict:
             errs.append(err)
             if case == FLASH_PATH and dtype == torch.float32:
                 path_err["flash_attention_hm"] = err
-        log(f"phase 8 flash_attention {tname} == plain version at "
+        log(f"phase 9 flash_attention {tname} == plain version at "
             f"{len(FLASH_CASES)} shapes (B,H,Hkv,Sq,Skv,D,causal) "
             f"{FLASH_CASES}: max abs err {[f'{e:.3e}' for e in errs]} "
             f"(tol {KERNEL_TOL[tname]})")
@@ -607,7 +773,7 @@ def check_kernels(dev) -> dict:
                     if case == WKV_PREFILL:
                         path_err["wkv6 prefill_step"] = err
                 del r, k, v, w, s0, out, st, want, want_st
-        log(f"phase 8 wkv6 {tname} == plain version at {len(WKV_CASES)} "
+        log(f"phase 9 wkv6 {tname} == plain version at {len(WKV_CASES)} "
             f"shapes (B,S,H,D,init_state) {WKV_CASES} and {WKV_EDGE} with "
             f"decays of exactly 0 and 1 in half the channels"
             f"{' (w bf16 and f32)' if len(wdtypes) > 1 else ''}: max abs "
@@ -689,7 +855,7 @@ def check_kernels(dev) -> dict:
                 big_err <= KERNEL_TOL[tname]["rtol"] * scale):
             raise AssertionError(f"ssd {tname} large dt: max abs err "
                                  f"{big_err} at outputs up to {scale}")
-        log(f"phase 8 ssd {tname} == plain version in chunks of "
+        log(f"phase 9 ssd {tname} == plain version in chunks of "
             f"{SSD_KERNEL_CHUNK} at {len(SSD_CASES)} shapes "
             f"(B,S,H,P,N,chunk,init_state) {SSD_CASES}: max abs err "
             f"{[f'{e:.3e}' for e in errs]} (tol {KERNEL_TOL[tname]}), state "
@@ -778,7 +944,7 @@ def serve_line(label: str, res, t_first: float, B: int = 0,
 
 
 def llama_path(dev) -> int:
-    """Phase 9: llama3.2-1b at full width.  Returns the flash launches of
+    """Phase 10: llama3.2-1b at full width.  Returns the flash launches of
     one ``make_prefill_step`` call (counts set to 0 just before it)."""
     import torch
 
@@ -821,7 +987,7 @@ def llama_path(dev) -> int:
         f"under the profiler, device busy {busy * 1e3:.1f} ms "
         f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
         f"{top}")
-    log(f"phase 9 {LLAMA} ({cfg.n_layers} layers, d {cfg.d_model}, heads "
+    log(f"phase 10 {LLAMA} ({cfg.n_layers} layers, d {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}, f32) make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
         f"{launches} flash launches; last-position logits cuda vs xla max "
@@ -838,17 +1004,17 @@ def llama_path(dev) -> int:
     if not torch.equal(res.tokens, first.tokens):
         raise AssertionError("two serve runs of one prompt differ")
     tf_err = teacher_forced(build_model(cfg_xla), params, prompts, res, LLAMA)
-    log(f"phase 9 {serve_line(LLAMA, res, first.prefill_s)}; teacher-forced "
+    log(f"phase 10 {serve_line(LLAMA, res, first.prefill_s)}; teacher-forced "
         f"decode vs full forward max abs {tf_err:.3e} (tol {MODEL_TOL}); "
         f"sample ids {res.tokens[0, :8].tolist()}")
     decode_profile(build_model(cfg_cuda), params, prompts, LLAMA)
     del params, first, res
-    free_model(f"phase 9 {LLAMA}")
+    free_model(f"phase 10 {LLAMA}")
     return launches
 
 
 def rwkv_path(dev) -> dict:
-    """Phase 10: rwkv6-1.6b at full width.  Returns the WKV6 launches of
+    """Phase 11: rwkv6-1.6b at full width.  Returns the WKV6 launches of
     one ``make_prefill_step`` call and of one serve run (counts set to 0
     just before each)."""
     import torch
@@ -894,13 +1060,13 @@ def rwkv_path(dev) -> dict:
         f"under the profiler, device busy {busy * 1e3:.1f} ms "
         f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
         f"{top}")
-    log(f"phase 10 {RWKV} make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
+    log(f"phase 11 {RWKV} make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
         f"{step_launches} wkv6 launches; last-position logits cuda vs xla "
         f"max abs {err:.3e} (tol {MODEL_TOL}); step {t_cuda_warm * 1e3:.1f} "
         f"ms cuda (first run {t_cuda * 1e3:.1f} ms), {t_xla * 1e3:.1f} ms "
         f"xla, {PREFILL_B * PREFILL_S / t_cuda_warm:.0f} tok/s")
     del tokens
-    free_model(f"phase 10 {RWKV} prefill step")
+    free_model(f"phase 11 {RWKV} prefill step")
 
     # ------------------------------------ serve B=4, prompt 512, 32 tokens
     prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
@@ -937,14 +1103,14 @@ def rwkv_path(dev) -> dict:
             msg=lambda m, i=i: f"rwkv layer {i} wkv state: {m}")
     del lg_c, lg_x, c_c, c_x
     tf_err = teacher_forced(m_xla, params, prompts, res, RWKV)
-    log(f"phase 10 {RWKV} ({cfg.n_layers} layers, d {cfg.d_model}, "
+    log(f"phase 11 {RWKV} ({cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.d_model // cfg.rwkv.head_dim} heads of {cfg.rwkv.head_dim}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, f32): {launches} wkv6 "
         f"launches in a serve run; prefill logits cuda vs xla max abs "
         f"{err:.3e} (tol {MODEL_TOL}), all {cfg.n_layers} final wkv states "
         f"max abs {st_err:.3e} (tol {STATE_TOL}); prefill with "
         f"cache {t_c * 1e3:.1f} ms cuda, {t_x * 1e3:.1f} ms xla")
-    log(f"phase 10 {serve_line(RWKV, res, first.prefill_s)}; teacher-forced "
+    log(f"phase 11 {serve_line(RWKV, res, first.prefill_s)}; teacher-forced "
         f"decode vs full forward max abs {tf_err:.3e} (tol {MODEL_TOL}); "
         f"sample ids {res.tokens[0, :8].tolist()}")
     wall, busy, count, top = device_profile(lambda: prefill(m_cuda))
@@ -954,12 +1120,12 @@ def rwkv_path(dev) -> dict:
         f"{top}")
     decode_profile(m_cuda, params, prompts, RWKV)
     del params, first, res
-    free_model(f"phase 10 {RWKV}")
+    free_model(f"phase 11 {RWKV}")
     return {"prefill_step": step_launches, "serve": launches}
 
 
 def zamba_path(dev) -> dict:
-    """Phase 12: zamba2-7b at full width and depth.  Returns the SSD
+    """Phase 13: zamba2-7b at full width and depth.  Returns the SSD
     launches of one ``make_prefill_step`` call and of one serve run
     (counts set to 0 just before each)."""
     import torch
@@ -987,7 +1153,7 @@ def zamba_path(dev) -> dict:
         raise AssertionError(f"{ZAMBA}: {n_params} parameters, {n_ssm} "
                              f"Mamba2 layers, {n_attn} attention "
                              f"applications")
-    log(f"phase 12 {ZAMBA}: {n_params} f32 parameters "
+    log(f"phase 13 {ZAMBA}: {n_params} f32 parameters "
         f"({4 * n_params / 1e9:.2f} GB) drawn in {t_init:.2f} s; {n_ssm} "
         f"Mamba2 layers (d {cfg.d_model}, {2 * cfg.d_model // cfg.ssm.head_dim}"
         f" SSD heads of {cfg.ssm.head_dim}, state {cfg.ssm.d_state}, chunk "
@@ -1023,14 +1189,14 @@ def zamba_path(dev) -> dict:
         f"under the profiler, device busy {busy * 1e3:.1f} ms "
         f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
         f"{top}")
-    log(f"phase 12 {ZAMBA} make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
+    log(f"phase 13 {ZAMBA} make_prefill_step B={PREFILL_B} S={PREFILL_S}: "
         f"{step_launches} ssd launches; last-position logits cuda vs xla max "
         f"abs {err:.3e} (tol {MODEL_TOL}); step {t_cuda_warm * 1e3:.1f} ms "
         f"cuda, {t_xla_warm * 1e3:.1f} ms xla (first runs "
         f"{t_cuda * 1e3:.1f} / {t_xla * 1e3:.1f} ms), "
         f"{PREFILL_B * PREFILL_S / t_cuda_warm:.0f} tok/s")
     del tokens
-    free_model(f"phase 12 {ZAMBA} prefill step")
+    free_model(f"phase 13 {ZAMBA} prefill step")
 
     # ------------------------------------ serve B=4, prompt 512, 32 tokens
     prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
@@ -1074,18 +1240,18 @@ def zamba_path(dev) -> dict:
             msg=lambda m, i=i: f"zamba layer {i} conv cache: {m}")
     del lg_c, lg_x, c_c, c_x
     tf_err = teacher_forced(m_xla, params, prompts, res, ZAMBA)
-    log(f"phase 12 {ZAMBA}: {serve_launches} ssd launches in a serve run; "
+    log(f"phase 13 {ZAMBA}: {serve_launches} ssd launches in a serve run; "
         f"prefill logits cuda vs xla max abs {err:.3e} (tol {MODEL_TOL}), "
         f"all {n_ssm} final ssm states max abs {st_err:.3e} (tol "
         f"{STATE_TOL}), conv caches {conv_err:.3e}; prefill with cache "
         f"{t_c * 1e3:.1f} ms cuda, {t_x * 1e3:.1f} ms xla")
-    log(f"phase 12 {serve_line(ZAMBA, res, first.prefill_s)}; teacher-forced "
+    log(f"phase 13 {serve_line(ZAMBA, res, first.prefill_s)}; teacher-forced "
         f"decode vs full forward ({SERVE_LP + SERVE_G - 1} tokens, dt=0 "
         f"padding) max abs {tf_err:.3e} (tol {MODEL_TOL}); sample ids "
         f"{res.tokens[0, :8].tolist()}")
     decode_profile(m_cuda, params, prompts, ZAMBA)
     del first, res, prompts
-    free_model(f"phase 12 {ZAMBA} serve")
+    free_model(f"phase 13 {ZAMBA} serve")
 
     # ---------------- the ring cache: B=1, a prompt of exactly the window
     W = cfg.sliding_window
@@ -1101,18 +1267,18 @@ def zamba_path(dev) -> dict:
                      prompts=prompts)
     tf_ring = teacher_forced(m_xla, params, prompts, ring_res,
                              f"{ZAMBA} ring")
-    log(f"phase 12 {serve_line(ZAMBA + ' ring', ring_res, ring_res.prefill_s, RING_B, W)}"
+    log(f"phase 13 {serve_line(ZAMBA + ' ring', ring_res, ring_res.prefill_s, RING_B, W)}"
         f"; {n_attn} ring caches of {W} slots, decode wrapping from its "
         f"first step; teacher-forced decode vs full windowed forward "
         f"({W + SERVE_G - 1} tokens) max abs {tf_ring:.3e} (tol "
         f"{MODEL_TOL}), all logits finite")
     del params, ring_res, prompts
-    free_model(f"phase 12 {ZAMBA}")
+    free_model(f"phase 13 {ZAMBA}")
     return {"prefill_step": step_launches, "serve": serve_launches}
 
 
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
-    """Phase 11 for flash attention: times and bounds at llama3.2-1b's
+    """Phase 12 for flash attention: times and bounds at llama3.2-1b's
     prefill-step shape, in f32 as the path runs it (bf16 beside it)."""
     import torch
     import torch.nn.functional as F
@@ -1165,12 +1331,12 @@ def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
         "bound_by": "operations" if ops_s >= bytes_s else "bytes",
         "shape": shape, "flops": flops, "exps": exps, "bytes": nbytes,
         **occupancy["flash_attention_hm"]}
-    log(f"phase 11 flash_attention_hm ({shape}): kernel {fa['ms']:.4f} ms "
+    log(f"phase 12 flash_attention_hm ({shape}): kernel {fa['ms']:.4f} ms "
         f"(cold L2 {fa['ms_cold_l2']:.4f} ms), plain {fa['plain_ms']:.4f} "
         f"ms, library {fa['library_ms']}, bound {rec['bound_ms']:.4f} ms "
         f"({flops} flop at 165 TFLOP/s (3xTF32): {ops_s * 1e3:.4f} ms; "
         f"{nbytes} bytes at 3.35 TB/s: {bytes_s * 1e3:.4f} ms)")
-    log(f"phase 11 flash_attention_hm: SIMT f32 bound "
+    log(f"phase 12 flash_attention_hm: SIMT f32 bound "
         f"{fa['bound_ms_simt']:.4f} ms; bf16 kernel {fa['ms_bf16']:.4f} ms, "
         f"scaled_dot_product_attention bf16 {fa['library_ms_bf16']:.4f} ms, "
         f"bf16 bound {fa['bound_ms_bf16']:.4f} ms ({exps} exponentials at "
@@ -1195,7 +1361,7 @@ def wkv6_inputs(dev, gen, case):
 
 
 def wkv6_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
-    """Phase 11 for WKV6: times and bounds at the serve prefill's shape
+    """Phase 12 for WKV6: times and bounds at the serve prefill's shape
     (with the fresh cache's zero state) and at ``make_prefill_step``'s (no
     state), in f32 as the path runs them; the kernel must beat the one it
     replaced at both."""
@@ -1234,7 +1400,7 @@ def wkv6_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
             "blocks": occupancy["wkv6"]["blocks"][key],
             "waves": occupancy["wkv6"]["waves"][key]})
         out[key] = t
-        log(f"phase 11 wkv6 ({t['shape']}): kernel {t['ms']:.4f} ms (cold L2 "
+        log(f"phase 12 wkv6 ({t['shape']}): kernel {t['ms']:.4f} ms (cold L2 "
             f"{t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
             f"library None, bound {t['bound_ms']:.4f} ms ({flops} flop at "
             f"67 TFLOP/s: {ops_s * 1e3:.4f} ms; {nbytes} bytes at 3.35 TB/s: "
@@ -1269,7 +1435,7 @@ def ssd_least_flops(B: int, S: int, H: int, P: int, N: int) -> int:
 
 
 def ssd_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
-    """Phase 11 for SSD: times and bounds at the serve prefill's shape
+    """Phase 12 for SSD: times and bounds at the serve prefill's shape
     (with the fresh cache's zero state, as a serve run passes it) and at
     ``make_prefill_step``'s (no state), in f32 as the path runs them."""
     import torch
@@ -1311,7 +1477,7 @@ def ssd_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
                      f"{chunk}, init_state {with_state}",
             "flops": flops, "bytes": nbytes})
         out[key] = t
-        log(f"phase 11 ssd ({t['shape']}): kernel {t['ms']:.4f} ms (cold L2 "
+        log(f"phase 12 ssd ({t['shape']}): kernel {t['ms']:.4f} ms (cold L2 "
             f"{t['ms_cold_l2']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
             f"library None, bound {t['bound_ms']:.4f} ms ({flops} flop at "
             f"165 TFLOP/s (3xTF32): {ops_s * 1e3:.4f} ms; {nbytes} bytes at "
@@ -1344,7 +1510,7 @@ def occupancy_report(libraries: dict) -> dict:
     """Phase 2, continued: the HMMA count of every kernel's SASS (the
     tensor-core kernels must have some) and, for the serving kernels, what
     they occupy on the card at their path shapes (none may spill).
-    Returns ``{record name: {...}}`` for phase 11."""
+    Returns ``{record name: {...}}`` for phase 12."""
     import torch
 
     from repro_torch.kernels import flash_attention, ssd, wkv6

@@ -2,7 +2,9 @@
 
 Two kinds of state must match.  For the task runtime it is the packed
 graph (the ``DeviceGraph``/``DeviceSchedule`` columns and the fused
-executor's tile-origin rows) and the stencil grid: :func:`from_reference`.
+executor's tile-origin rows) and the stencil grid: :func:`from_reference`;
+and the distributed engines' rank partition:
+:func:`rank_slices_from_reference`.
 For the models it is the architecture config and the parameter pytree:
 :func:`config_from_reference` and :func:`params_from_reference`.  Both
 take the reference's objects duck-typed — anything with the same
@@ -21,6 +23,7 @@ import torch
 
 from .compat import default_device
 from .core.edt.device import DeviceGraph, DeviceSchedule
+from .core.edt.distributed import RankSlice
 from .models import build_model
 from .models.config import (ArchConfig, MLAConfig, MoEConfig, RWKVConfig,
                             SSMConfig)
@@ -86,6 +89,42 @@ def from_reference(dg, ds=None, origins=None, state=None,
     if state is not None:
         grid = torch.from_numpy(np.array(state)).to(default_device(device))
     return Converted(graph, sched, fo, grid)
+
+
+def _int64(obj, name: str, length: int) -> np.ndarray:
+    a = np.asarray(getattr(obj, name))
+    if a.dtype != np.int64 or a.shape != (length,):
+        raise ValueError(f"{name}: want int64 of shape ({length},), got "
+                         f"{a.dtype} of shape {a.shape}")
+    return a.copy()
+
+
+def rank_slices_from_reference(slices) -> list[RankSlice]:
+    """The port's :class:`RankSlice` list from the reference's partition.
+
+    ``slices`` are the reference's ``RankSlice`` objects (or any objects
+    with the same attributes), in rank order.  Every column must be int64
+    of its length — ``bounds`` ``ranks + 1``, ``indeg`` the rank's task
+    count, the CSR row pointers one more, the target columns their row
+    pointer's last entry — else ``ValueError`` names it.  Feeding both
+    packages' engines the same partition isolates the engines.
+    """
+    out = []
+    for k, sl in enumerate(slices):
+        rank, ranks = int(sl.rank), int(sl.ranks)
+        lo, hi = int(sl.lo), int(sl.hi)
+        if rank != k or not 0 <= lo <= hi:
+            raise ValueError(f"slice {k}: rank {rank}, range [{lo}, {hi})")
+        nl = hi - lo
+        cols = {"bounds": _int64(sl, "bounds", ranks + 1),
+                "indeg": _int64(sl, "indeg", nl),
+                "l_indptr": _int64(sl, "l_indptr", nl + 1),
+                "r_indptr": _int64(sl, "r_indptr", nl + 1)}
+        for tgt, ptr in (("l_tgt", "l_indptr"), ("r_tgt", "r_indptr")):
+            cols[tgt] = _int64(sl, tgt, int(cols[ptr][-1]))
+        out.append(RankSlice(rank=rank, ranks=ranks, lo=lo, hi=hi,
+                             expected_in=int(sl.expected_in), **cols))
+    return out
 
 
 # ------------------------------------------------------------------ models

@@ -99,6 +99,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         edt.FusedExecutor(g, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        edt.run_distributed(ig, engine="device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         handwritten_solve(SPECS["jacobi2d"], np.zeros((6, 6), np.float32), 1)
     dg = edt.pack_graph(ig)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -106,6 +108,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     # the CPU, asked for by name, runs
     assert compat.default_device("cpu") == torch.device("cpu")
     assert edt.DeviceExecutor(ig, device="cpu").run().counters.depth > 0
+    assert edt.run_distributed(ig, engine="device", device="cpu").depth > 0
 
 
 @pytest.mark.parametrize("name,family", [
