@@ -69,7 +69,21 @@ attention) at full width and depth, f32 weights drawn from a seed.
     cache against the plain route; teacher-forced decode against the full
     forward; and the 4,096-slot ring cache (B=1, a prompt of exactly the
     window, 32 tokens, decode wrapping from its first step) against the
-    full windowed forward.  Phase 13 runs before phase 12.
+    full windowed forward.  Phase 13 runs before phase 12;
+14. the paper's synchronization models and the engine crossover: the
+    Table-2 overhead atlas over its full ladder (five programs, six
+    models, grains 0.2, 1 and 5; every row validated, no fit failure; the
+    fitted class of each counter beside the expected one), the
+    reference's crossover ladder (578, 4,356 and 33,800 tasks: the host
+    Sim, the replay sweep on the card and the two-rank NumPy engine, every
+    row verified; seven runs, with each row's spread and each run's
+    points), the same three priced per task at the slice's 1,056,784
+    tasks (three runs of the Sim and the warm replay, the replay
+    validated by the card's violation counters and the Sim's execution
+    order equal to the schedule's; phase 8's NumPy inline run read, not
+    run again), and the threaded autodec runtime at 33,800 tasks (each
+    task exactly once, every successor after its predecessor).  Phase 14 runs right after
+    phase 8, outside every kernel's counted launches.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -107,6 +121,8 @@ ROOT = Path(__file__).resolve().parent
 
 SLICE = ("jacobi2d", (2, 2, 2), {"T": 32, "N": 512})
 SLICE_DEPTH, SLICE_WIDTH = 558, 3920
+CROSSOVER_REPEATS = 7                   # phase 14: runs of the crossover ladder
+SLICE_PRICE_REPEATS = 3                 # phase 14: of the slice's Sim and replay
 #: float64 sizes of the reference's fused suite (tests/test_fused_exec.py)
 CASES = [
     ("stencil1d", (2, 2), {"T": 6, "N": 15}),
@@ -312,9 +328,11 @@ def device_profile(fn):
     return wall, busy, count, top
 
 
-def edt_path(dev, card) -> dict:
-    """Phases 3 to 8, the EDT path.  Returns the wavefront kernel's record
-    (its launches counted over phases 4 to 6 and phase 8's device runs)."""
+def edt_path(dev, card) -> tuple[dict, dict]:
+    """Phases 3 to 8, the EDT path.  Returns the slice's graph, schedule
+    and phase 8's two-rank NumPy inline seconds (for phase 14), and the
+    wavefront kernel's record (its launches counted over phases 4 to 6
+    and phase 8's device runs)."""
     import torch
 
     from repro_torch.core.edt import (DeviceExecutor, FusedExecutor,
@@ -537,10 +555,11 @@ def edt_path(dev, card) -> dict:
         log(f"profile {label}: wall {wall:.3f} s under the profiler, device "
             f"busy {busy:.4f} s ({100 * busy / wall:.1f}%) in {count} "
             f"kernels; top (name, ms): {top}")
-    rank_launches, rank_steps, rank_err = rank_path(dev, ig, sched,
-                                                    run.level_of, check_step)
+    rank_launches, rank_steps, rank_err, inline_s = rank_path(
+        dev, ig, sched, run.level_of, check_step)
     max_err = max(max_err, rank_err)
-    return {
+    slice_run = {"ig": ig, "sched": sched, "inline_s": inline_s}
+    return slice_run, {
         "name": "wavefront_step", "route": "cuda",
         "source": "src/repro_torch/csrc/wavefront_step.cu",
         "replaces": "src/repro/core/edt/device.py:225",
@@ -558,7 +577,8 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
     ``wavefront_step``'s launches in the first device run at each rank
     count (the count set to 0 just before each run, read just after), the
     rank frontiers on which the kernel was held against its plain version
-    (``check_step``) and the largest difference there."""
+    (``check_step``), the largest difference there, and the seconds of the
+    two-rank NumPy engine's inline run."""
     import importlib
 
     from repro_torch.core.edt import (MESSAGE_LOSS, RANK_CRASH, Fault,
@@ -594,7 +614,7 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
                 f"in {sum(s.batches_out for s in st)} batches, ranks' loop "
                 f"{max(s.seconds for s in st):.3f} s")
 
-    launches, cross_of, warm_of = {}, {}, {}
+    launches, cross_of, warm_of, run_s = {}, {}, {}, {}
     rank_steps, rank_err = 0, 0
     for ranks in (2, 4):
         t0 = time.perf_counter()
@@ -653,7 +673,7 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
                         "timeout": 120.0})):
         t0 = time.perf_counter()
         nrun = run_distributed(ig, ranks=2, engine="numpy", **kw)
-        t_run = time.perf_counter() - t0
+        t_run = run_s[label] = time.perf_counter() - t0
         line = check(nrun, label, cross_of[2])
         if nrun.level_of.tobytes() != warm_of[2].level_of.tobytes():
             raise AssertionError(f"{label}: differs from the device engine")
@@ -701,7 +721,143 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
     log(f"profile device engine, 2 ranks: wall {wall:.3f} s under the "
         f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}%) in "
         f"{count} kernels; top (name, ms): {top}")
-    return launches, rank_steps, rank_err
+    return launches, rank_steps, rank_err, run_s["numpy engine inline"]
+
+
+def atlas_path(dev, card, ig, sched, inline_s) -> None:
+    """Phase 14: the synchronization atlas and the engine crossover.
+
+    The six §2 models over the atlas's full ladder (every row validated,
+    no fit failure), the reference's crossover ladder with the replay
+    sweep on the card, the three engines priced per task at the slice's
+    size (phase 8's NumPy inline run is read, not run again), and the
+    threaded autodec runtime at 33,800 tasks.  No kernel launches here:
+    the replay sweep decrements with ``index_add_``."""
+    from repro_torch.core.edt import (DeviceExecutor, TiledTaskGraph, atlas,
+                                      run_graph_threaded, simulate_indexed)
+    from repro_torch.core.poly import Tiling
+    from repro_torch.core.programs import PROGRAMS
+
+    t_phase = time.perf_counter()
+    # ------------------------------------------------------- the atlas
+    t0 = time.perf_counter()
+    res = atlas.sweep()
+    t_atlas = time.perf_counter() - t0
+    if res["fit_failures"]:
+        raise AssertionError(f"atlas fit failures: {res['fit_failures']}")
+    n_rows = len(res["rows"])
+    want_rows = len(atlas.MODELS) * sum(len(w.sizes) + len(atlas.GRAINS) - 1
+                                        for w in atlas.WORKLOADS)
+    if n_rows != want_rows:
+        raise AssertionError(f"atlas: {n_rows} rows, want {want_rows}")
+    for model in atlas.MODELS:
+        fits = [f for f in res["fits"] if f["model"] == model]
+        log(f"phase 14 atlas {model}: " + "; ".join(
+            f"{c} " + "/".join(f["cls"] for f in fits if f["counter"] == c)
+            + f" (expected {','.join(atlas.EXPECTED[model][c])})"
+            for c in atlas.ATLAS_COUNTERS))
+    log(f"phase 14 atlas: {n_rows} rows over {len(atlas.WORKLOADS)} "
+        f"programs, {len(atlas.MODELS)} models, grains {res['grains']}, "
+        f"each validated; fits per program in "
+        f"{[w.program for w in atlas.WORKLOADS]}; no fit failure; "
+        f"{t_atlas:.3f} s")
+
+    # --------------------------------------------------- the crossover
+    # A ladder row is one host timing of 0.7-45 ms, so one run's noise can
+    # move a point: the ladder runs CROSSOVER_REPEATS times, and each
+    # row's spread and every repeat's points are printed.
+    t0 = time.perf_counter()
+    runs = []
+    for rep in range(CROSSOVER_REPEATS):
+        cross = atlas.crossover(
+            device=dev, emit=(lambda line: log(f"phase 14 crossover {line}"))
+            if rep == 0 else None)
+        bad = [r for r in cross["rows"]
+               if not r["verified"] or "skipped" in r]
+        sizes = list(dict.fromkeys(r["size"] for r in cross["rows"]))
+        if bad or len(sizes) != len(atlas.CROSSOVER_SIZES) or len(
+                cross["rows"]) != 3 * len(sizes):
+            raise AssertionError(f"crossover rows {cross['rows']}")
+        runs.append(cross)
+    t_cross = time.perf_counter() - t0
+    us = collections.defaultdict(list)
+    for cross in runs:
+        for r in cross["rows"]:
+            us[r["size"], r["path"]].append(r["per_task_us"])
+    paths = ("host_sim", "device_replay", "distributed_inline_2")
+    for size in sizes:
+        log(f"phase 14 crossover {size} us a task min/median/max over "
+            f"{CROSSOVER_REPEATS}: " + "; ".join(
+                f"{p} {min(us[size, p])}/{statistics.median(us[size, p])}"
+                f"/{max(us[size, p])}" for p in paths))
+    for p in paths[1:]:
+        tally = collections.Counter(str(c["points"][p]) for c in runs)
+        at_median = next((s for s in sizes if statistics.median(us[s, p])
+                          < statistics.median(us[s, "host_sim"])), None)
+        log(f"phase 14 crossover point {p}: {dict(tally)} over "
+            f"{CROSSOVER_REPEATS} repeats; on the medians {at_median}")
+    log(f"phase 14 crossover: {CROSSOVER_REPEATS} x {len(sizes) * 3} rows "
+        f"all verified; {t_cross:.3f} s on {card}")
+
+    # ------------------------------------- the three engines per task
+    # The slice's row is priced as atlas.crossover prices one size (the
+    # Sim on its workers, then the replay cold and warm), though not
+    # through it: its ladder is fixed, and it would build this graph again
+    # and rerun the two-rank engine that phase 8 timed.  The replay is
+    # checked by the card's own violation counters (replay_result raises
+    # on any); the order compared is the Sim's against the schedule's
+    # levels, which a replay returns.
+    n = ig.n
+    rex = DeviceExecutor(ig, schedule=sched, device=dev)
+    t_sim, t_replay = [], []
+    for rep in range(SLICE_PRICE_REPEATS):
+        t0 = time.perf_counter()
+        sim = simulate_indexed(sched, workers=atlas.CROSSOVER_WORKERS)
+        t_sim.append(time.perf_counter() - t0)
+        if rep == 0:
+            rex.run()                          # cold: the column upload
+        t0 = time.perf_counter()
+        rrun = rex.run()                       # warm
+        t_replay.append(time.perf_counter() - t0)
+        if (rrun.counters.tasks_finished != n
+                or not np.array_equal(rrun.exec_order, sim.exec_order)):
+            raise AssertionError("the Sim's exec_order differs from the "
+                                 "replayed schedule's")
+
+    def spread(ts):
+        return (f"{'/'.join(f'{1e6 * t / n:.3f}' for t in sorted(ts))} us "
+                f"({'/'.join(f'{t:.4f}' for t in sorted(ts))} s)")
+
+    log(f"phase 14 per task at n={n}, sorted over {SLICE_PRICE_REPEATS} "
+        f"runs: host Sim ({atlas.CROSSOVER_WORKERS} workers) "
+        f"{spread(t_sim)}; warm device replay {spread(t_replay)}, validated "
+        f"by the card's violation counters, the Sim's exec_order equal to "
+        f"the schedule's; two-rank NumPy inline (phase 8, one run) "
+        f"{spread([inline_s])}; on {card}")
+    del sim, rex, rrun
+
+    # ------------------------------------------- the threaded runtime
+    params = {"T": 16, "N": 128}
+    graph = TiledTaskGraph(PROGRAMS["jacobi2d"](),
+                           {"S": Tiling(atlas.CROSSOVER_TILES)})
+    tig = graph.index_graph(params)
+    t0 = time.perf_counter()
+    order = run_graph_threaded(graph, params, workers=8, stall_timeout=60.0)
+    t_thr = time.perf_counter() - t0
+    index = {t: i for i, t in enumerate(tig.tasks)}
+    ids = np.asarray([index[t] for t in order], dtype=np.int64)
+    if ids.size != tig.n or np.unique(ids).size != tig.n:
+        raise AssertionError(f"threaded: {ids.size} runs of {tig.n} tasks, "
+                             f"{np.unique(ids).size} distinct")
+    pos = np.empty(tig.n, dtype=np.int64)
+    pos[ids] = np.arange(tig.n)
+    if not (pos[tig.edge_tgt] > pos[tig.edge_src]).all():
+        raise AssertionError("threaded: a successor ran before its "
+                             "predecessor")
+    log(f"phase 14 threaded autodec: {tig.n} tasks, {tig.n_edges} edges, "
+        f"8 workers, each task exactly once, every successor after its "
+        f"predecessor; {t_thr:.3f} s, {tig.n / t_thr:.0f} tasks/s")
+    log(f"phase 14 wall {time.perf_counter() - t_phase:.3f} s")
 
 
 def check_kernels(dev) -> dict:
@@ -1643,6 +1799,7 @@ def ablation(dev, card, replaced: Path | None = None) -> dict:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1694,7 +1851,10 @@ def main() -> int:
             f"{p.name} {s:.3f} s" for p, s in built.values()))
     occupancy = occupancy_report({n: p for n, (p, _) in built.items()})
 
-    records = [edt_path(dev, card)]
+    slice_run, wavefront_record = edt_path(dev, card)
+    records = [wavefront_record]
+    atlas_path(dev, card, **slice_run)
+    del slice_run
     path_err = check_kernels(dev)
     flash_launches = llama_path(dev)
     wkv6_launches = rwkv_path(dev)
@@ -1713,6 +1873,7 @@ def main() -> int:
                                  f"{step['ms']} ms is below its bound "
                                  f"{step['bound_ms']}")
     log(f"kernel times on {card}")
+    log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
