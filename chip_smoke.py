@@ -83,7 +83,18 @@ attention) at full width and depth, f32 weights drawn from a seed.
     order equal to the schedule's; phase 8's NumPy inline run read, not
     run again), and the threaded autodec runtime at 33,800 tasks (each
     task exactly once, every successor after its predecessor).  Phase 14 runs right after
-    phase 8, outside every kernel's counted launches.
+    phase 15, outside every kernel's counted launches;
+15. the slice's graph generated on a process pool (the sharded scan of
+    ``core/edt/shard.py``), right after phase 8: the host's cores and
+    ``/dev/shm`` room; ``synthesize_indexed(graph, params, shards=s)``
+    at 2 and 4 shards and twice at 4 on one pool of the caller's, the
+    host seconds of each and the transport (shared memory or pickle) that
+    carried the blocks, each graph and schedule byte-identical to the
+    in-process ones; ``DeviceExecutor(graph, params, shards=4)``'s
+    discover sweep through ``wavefront_step`` with ``level_of``
+    byte-identical to phase 4's and one launch a level (counted into the
+    kernel's record); a worker crash at 2 shards recovered byte-identical
+    with no segment of the phase left in ``/dev/shm``.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -123,6 +134,7 @@ SLICE = ("jacobi2d", (2, 2, 2), {"T": 32, "N": 512})
 SLICE_DEPTH, SLICE_WIDTH = 558, 3920
 CROSSOVER_REPEATS = 7                   # phase 14: runs of the crossover ladder
 SLICE_PRICE_REPEATS = 3                 # phase 14: of the slice's Sim and replay
+SHARD_ROUND_TIMEOUT = 120.0             # phase 15: seconds a pool round may take
 #: float64 sizes of the reference's fused suite (tests/test_fused_exec.py)
 CASES = [
     ("stencil1d", (2, 2), {"T": 6, "N": 15}),
@@ -353,12 +365,15 @@ def edt_path(dev, card) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     graph = TiledTaskGraph(PROGRAMS[name](), {"S": Tiling(tiles)},
                            backend="numpy")
+    t1 = time.perf_counter()
     ig, sched = synthesize_indexed(graph, params)
+    t_synth = time.perf_counter() - t1
     dg = pack_graph(ig)
     t_graph = time.perf_counter() - t0
     log(f"host graph {name} tiles {tiles} {params}: n={ig.n} "
         f"E={ig.n_edges} depth={sched.depth} width={sched.max_width} "
-        f"in {t_graph:.3f} s")
+        f"in {t_graph:.3f} s (synthesize_indexed in process "
+        f"{t_synth:.3f} s)")
     if (sched.depth, sched.max_width) != (SLICE_DEPTH, SLICE_WIDTH):
         raise AssertionError(f"host schedule depth/width "
                              f"{sched.depth}/{sched.max_width}, want "
@@ -558,13 +573,17 @@ def edt_path(dev, card) -> tuple[dict, dict]:
     rank_launches, rank_steps, rank_err, inline_s = rank_path(
         dev, ig, sched, run.level_of, check_step)
     max_err = max(max_err, rank_err)
+    shard_launches = shard_path(dev, graph, params, ig, sched, run.level_of,
+                                t_synth)
     slice_run = {"ig": ig, "sched": sched, "inline_s": inline_s}
     return slice_run, {
         "name": "wavefront_step", "route": "cuda",
         "source": "src/repro_torch/csrc/wavefront_step.cu",
         "replaces": "src/repro/core/edt/device.py:225",
-        "launches": main_launches + sum(rank_launches.values()),
-        "launches_rank_engine": rank_launches, "matched": True,
+        "launches": (main_launches + sum(rank_launches.values())
+                     + shard_launches),
+        "launches_rank_engine": rank_launches,
+        "launches_sharded_discover": shard_launches, "matched": True,
         "frontiers_checked": steps + rank_steps, "max_abs_err": max_err,
         "ms": step_ms, "ms_cold_l2": step_cold_ms, "plain_ms": plain_ms,
         "host_us": step_host_us,
@@ -722,6 +741,162 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
         f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}%) in "
         f"{count} kernels; top (name, ms): {top}")
     return launches, rank_steps, rank_err, run_s["numpy engine inline"]
+
+
+def shard_path(dev, graph, params, ig, sched, disc_level_of,
+               t_synth) -> int:
+    """Phase 15: the slice's graph generated on a process pool.
+
+    ``synthesize_indexed(graph, params, shards=s)`` at 2 and 4 shards on
+    pools of its own and twice at 4 on one pool of the caller's, each
+    byte-identical to the in-process graph and schedule of the host graph
+    section (``t_synth`` its seconds); ``DeviceExecutor(graph, params,
+    shards=4)``'s discover sweep, whose ``wavefront_step`` launches it
+    returns (the count set to 0 just before the run, read just after);
+    and a worker crash recovered byte-identical, with no segment of the
+    phase left in ``/dev/shm``.  Every ``synthesize_indexed`` build runs
+    under a retry policy with a round timeout, so a wedged worker ends in
+    ``ShardRecoveryError``, not a hang (``DeviceExecutor`` takes no
+    policy, as the reference's does not).  The worker entry points use
+    NumPy only, so the pools keep the platform's default start method
+    (fork on Linux) after CUDA is initialised.  ``scan_sharded`` and the
+    segment allocator are wrapped to read which transport carried the
+    blocks, the seconds of the scan and of each of its pool rounds, and
+    the names of the shared-memory segments each run made."""
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core.edt import (WORKER_CRASH, DeviceExecutor, Fault,
+                                      FaultPlan, RetryPolicy,
+                                      schedule_from_graph, synthesize_indexed)
+    from repro_torch.core.edt import shard
+    from repro_torch.core.edt.device import wavefront_step
+
+    t_phase = time.perf_counter()
+    room = shard.shm_room()
+    log(f"phase 15 host: os.cpu_count() {os.cpu_count()}, "
+        f"sched_getaffinity {len(os.sched_getaffinity(0))} cores; "
+        f"/dev/shm " + (f"size {room[0]} B, free {room[1]} B" if room
+                        else "absent"))
+    runs, names, rounds = [], [], []
+    scan_sharded, new_segment = shard.scan_sharded, shard._Segments._new
+    run_round = shard.run_round
+
+    def recording_round(*args, **kw):
+        t0 = time.perf_counter()
+        out = run_round(*args, **kw)
+        rounds.append(time.perf_counter() - t0)
+        return out
+
+    def recording_scan(*args, **kw):
+        rounds.clear()
+        t0 = time.perf_counter()
+        scans = scan_sharded(*args, **kw)
+        runs.append((scans.transport, scans.shm_bytes,
+                     time.perf_counter() - t0, list(rounds)))
+        return scans
+
+    def recording_new(self, nbytes):
+        shm = new_segment(self, nbytes)
+        if shm is not None:
+            names.append(shm.name)
+        return shm
+
+    def left_in_shm() -> list:
+        gc.collect()
+        return [n for n in names
+                if os.path.exists(os.path.join(shard.SHM_DIR, n))]
+
+    blocks = [(s, a.tobytes()) for s, a in ig.stmt_blocks]
+
+    def check(got, got_sched, label):
+        for field in ("edge_src", "edge_tgt", "pred_n"):
+            if getattr(got, field).tobytes() != getattr(ig, field).tobytes():
+                raise AssertionError(f"{label}: {field} differs from the "
+                                     "in-process graph")
+        if [(s, a.tobytes()) for s, a in got.stmt_blocks] != blocks:
+            raise AssertionError(f"{label}: stmt_blocks differ")
+        if got_sched.level_of.tobytes() != sched.level_of.tobytes() or len(
+                got_sched.levels) != sched.depth or any(
+                a.tobytes() != b.tobytes()
+                for a, b in zip(got_sched.levels, sched.levels)):
+            raise AssertionError(f"{label}: schedule differs from the "
+                                 "in-process one")
+
+    policy = RetryPolicy(max_retries=2, timeout=SHARD_ROUND_TIMEOUT)
+    lines = []
+    t0 = time.perf_counter()
+    schedule_from_graph(ig)
+    t_level = time.perf_counter() - t0
+    shard.scan_sharded, shard._Segments._new = recording_scan, recording_new
+    shard.run_round = recording_round
+    try:
+        def build(label, **kw):
+            t0 = time.perf_counter()
+            got, got_sched = synthesize_indexed(graph, params,
+                                                recovery=policy, **kw)
+            t = time.perf_counter() - t0
+            check(got, got_sched, label)
+            transport, need, t_scan, secs = runs[-1]
+            lines.append(f"{label} {t:.3f} s (scan {t_scan:.3f} s, its pool "
+                         f"rounds {'/'.join(f'{x:.3f}' for x in secs)}) by "
+                         f"{transport}")
+            return t, need
+
+        for s in (2, 4):
+            _, need = build(f"shards={s}", shards=s)
+        with ProcessPoolExecutor(max_workers=4) as pool:
+            for k in ("first", "second"):
+                build(f"shards=4 on the caller's pool, {k} build",
+                      shards=4, pool=pool)
+        log(f"phase 15 synthesize_indexed at n={ig.n} E={ig.n_edges}: "
+            f"byte-identical to the in-process graph and schedule "
+            f"(in process {t_synth:.3f} s, of which leveling "
+            f"{t_level:.3f} s, serial in every build; the pool rounds "
+            f"count, tile, edge): " + "; ".join(lines)
+            + f"; the counted plan needs {need} B of shared memory"
+            + (f" against {room[1]} B free" if room else ""))
+
+        t0 = time.perf_counter()
+        ex = DeviceExecutor(graph, params, shards=4, device=dev)
+        t_build = time.perf_counter() - t0
+        wavefront_step.launches = 0
+        drun, t_run = timed(ex.run)
+        launches = wavefront_step.launches
+        if drun.level_of.tobytes() != disc_level_of.tobytes():
+            raise AssertionError("sharded DeviceExecutor: level_of differs "
+                                 "from phase 4's discover sweep")
+        if launches != drun.counters.depth:
+            raise AssertionError(f"sharded DeviceExecutor: {launches} kernel "
+                                 f"launches for {drun.counters.depth} steps")
+        log(f"phase 15 DeviceExecutor(graph, params, shards=4): graph and "
+            f"packing {t_build:.3f} s by {runs[-1][0]}; discover "
+            f"{t_run:.3f} s, level_of byte-identical to phase 4's; kernel "
+            f"launches {launches} == steps {drun.counters.depth}")
+        del ex, drun
+
+        plan = FaultPlan(faults=(Fault(kind=WORKER_CRASH, round=1, index=0,
+                                       times=1),))
+        t0 = time.perf_counter()
+        got, got_sched = synthesize_indexed(graph, params, shards=2,
+                                            faults=plan, recovery=policy)
+        t_fault = time.perf_counter() - t0
+        check(got, got_sched, "worker crash recovered")
+        del got, got_sched
+        if [f[:3] for f in plan.fired] != [("shard_failure", (1, 0), 0)]:
+            raise AssertionError(f"worker crash: fired {plan.fired}")
+        left = left_in_shm()
+        if left:
+            raise AssertionError(f"segments left in /dev/shm: {left}")
+        log(f"phase 15 worker crash (round 1, job 0, once) at shards=2: "
+            f"recovered byte-identical in {t_fault:.3f} s by {runs[-1][0]}; "
+            f"fired {[f[:3] for f in plan.fired]}; of the {len(names)} "
+            f"segments the phase's runs made, none left in /dev/shm")
+    finally:
+        shard.scan_sharded, shard._Segments._new = scan_sharded, new_segment
+        shard.run_round = run_round
+    log(f"phase 15 wall {time.perf_counter() - t_phase:.3f} s")
+    return launches
 
 
 def atlas_path(dev, card, ig, sched, inline_s) -> None:

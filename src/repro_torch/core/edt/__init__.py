@@ -1,9 +1,10 @@
 """Event-driven task graphs: construction (§3/§4), sync models (§2), execution.
 
-The host side — the six synchronization models on the instrumented
-simulator, their Table-2 overhead atlas, the threaded autodec runtime and
-the generated-code emitters — and the counted-sync engines on the card
-(the device and fused sweeps, the distributed rank engine).
+The host side — graph generation in process or sharded over a process
+pool, the six synchronization models on the instrumented simulator, their
+Table-2 overhead atlas, the threaded autodec runtime and the
+generated-code emitters — and the counted-sync engines on the card (the
+device and fused sweeps, the distributed rank engine).
 """
 from .atlas import (ATLAS_COUNTERS, AtlasWorkload, Instance, WORKLOADS,
                     atlas_crossover, atlas_sweep, build_instances, fit_class,
@@ -22,9 +23,10 @@ from .faults import (DROPPED_DECREMENT, MESSAGE_LOSS, RANK_CRASH,
 from .fused import (FusedExecutor, FusedRun, graph_tile, host_execute,
                     pack_origins)
 from .recovery import (FailureReport, ResilientRun, RetryPolicy,
-                       ScheduleValidationError, StallError, StallReport,
-                       TaskGroupError, Watchdog, poisoned_cone,
-                       simulate_indexed_resilient)
+                       ScheduleValidationError, ShardRecoveryError,
+                       StallError, StallReport, TaskGroupError, Watchdog,
+                       poisoned_cone, simulate_indexed_resilient)
+from .shard import ShardPlan, ShardSpec, plan_shards, scan_sharded
 from .syncmodels import (MODELS, RunResult, run_autodec, run_autodec_nosrc,
                          run_counted, run_model, run_prescribed, run_tags1,
                          run_tags2, validate_order)
@@ -39,6 +41,7 @@ from .wavefront import (IndexedSchedule, WavefrontSchedule, levels_from_array,
 __all__ = [
     "PolyhedralProgram", "Statement", "Dependence", "TiledTaskGraph",
     "MaterializedGraph", "IndexedGraph", "TaskId",
+    "ShardSpec", "ShardPlan", "plan_shards", "scan_sharded",
     "DeviceExecutor", "DeviceRun", "DeviceCounters", "DeviceGraph",
     "DeviceSchedule", "pack_graph", "pack_schedule",
     "wavefront_step", "wavefront_step_torch", "decrement_reference",
@@ -60,7 +63,7 @@ __all__ = [
     "WORKER_CRASH", "WORKER_HANG", "SHM_ATTACH_FAIL", "TASK_BODY_ERROR",
     "DROPPED_DECREMENT", "RANK_CRASH", "MESSAGE_LOSS",
     "RetryPolicy", "FailureReport", "StallReport", "StallError",
-    "TaskGroupError", "ScheduleValidationError",
+    "ShardRecoveryError", "TaskGroupError", "ScheduleValidationError",
     "Watchdog", "poisoned_cone", "simulate_indexed_resilient", "ResilientRun",
     "WavefrontSchedule", "synthesize", "simulate_schedule",
     "IndexedSchedule", "synthesize_indexed", "simulate_indexed",

@@ -515,16 +515,18 @@ def replay_result(dg: DeviceGraph, ds: DeviceSchedule, tally: tuple):
 class DeviceExecutor:
     """Counted-sync execution of an index graph on the card.
 
-    Construct from a :class:`TiledTaskGraph` (``params`` required; the
-    graph is generated in process) or directly from an
-    :class:`IndexedGraph`.  With ``schedule=`` (an :class:`IndexedSchedule`,
+    Construct from a :class:`TiledTaskGraph` (``params`` required;
+    ``shards=``/``parallel=``/``pool=`` and ``faults=`` drive its
+    generation as in :meth:`TiledTaskGraph.index_graph`) or directly from
+    an :class:`IndexedGraph`.  With ``schedule=`` (an :class:`IndexedSchedule`,
     e.g. from ``synthesize_indexed``) the O(V+E) replay sweep runs and
     *validates* the schedule against the counters; without it the discover
     sweep derives the frontiers on the device through :func:`wavefront_step`.
     ``packed=(DeviceGraph, DeviceSchedule | None)`` skips the host-side
     packing.  ``faults=`` (a :class:`~.faults.FaultPlan`) arms dropped
-    decrements.  ``device`` defaults to CUDA and raises where there is none;
-    pass ``device="cpu"`` for the plain torch versions.
+    decrements, and with a :class:`TiledTaskGraph` also the shard faults
+    of its generation scans.  ``device`` defaults to CUDA and raises where
+    there is none; pass ``device="cpu"`` for the plain torch versions.
 
     ``run()`` returns a :class:`DeviceRun` whose ``levels`` are
     byte-identical to ``synthesize_indexed``'s for the same graph.
@@ -533,12 +535,13 @@ class DeviceExecutor:
     def __init__(self, graph: Union[TiledTaskGraph, IndexedGraph],
                  params: Optional[dict] = None, *,
                  schedule: Optional[IndexedSchedule] = None,
-                 faults=None, packed=None, device=None):
+                 shards: Optional[int] = None, parallel: bool = False,
+                 pool=None, faults=None, packed=None, device=None):
         self.device = default_device(device)
         if isinstance(graph, TiledTaskGraph):
             if params is None:
                 raise TypeError("params required with a TiledTaskGraph")
-            ig = graph.index_graph(params)
+            ig = graph.index_graph(params, shards, parallel, pool, faults)
         else:
             ig = graph
         if packed is not None and schedule is not None:

@@ -13,8 +13,15 @@
 * :class:`TaskGroupError` — every task-body failure of a threaded run in
   one exception, with its :class:`FailureReport`.
 * :class:`RetryPolicy` — bounded exponential backoff over whole
-  distributed attempts, which are pure functions of their partition, so
-  a recovered run is byte-identical to a fault-free one.
+  distributed attempts and over shard jobs: both are pure functions of
+  their inputs (a partition, a :class:`~.shard.ShardSpec`), so a
+  recovered run is byte-identical to a fault-free one.
+* **Shard retry** — :func:`run_round` drives one pool round of shard jobs
+  with per-round timeouts, dead-worker detection (a broken pool is
+  rebuilt when the caller owns it) and bounded backoff; even a stale
+  duplicate from a timed-out worker deposits the same bytes.  Exhausted
+  retries raise :class:`ShardRecoveryError` carrying a
+  :class:`FailureReport`, never a partial graph.
 * **Poisoned-cone quarantine** — a task-body exception must cancel exactly
   the tasks data-dependent on it.  :func:`poisoned_cone` computes the
   forward closure over flat edge arrays (:func:`cone_from_successors` is
@@ -32,6 +39,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from concurrent.futures import BrokenExecutor, wait as _fwait
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -49,7 +57,7 @@ class FailureReport:
     task ids/keys cancelled because they depend on a failure; ``undrained``
     maps each poisoned task to the counter value it was left with (its
     signals that never arrived).  ``context`` names the failure domain
-    (``threaded`` / ``sim`` / ``distributed``).
+    (``sharded`` / ``threaded`` / ``sim`` / ``distributed``).
     """
 
     context: str
@@ -124,6 +132,15 @@ class StallError(RuntimeError):
         self.report = report
 
 
+class ShardRecoveryError(RuntimeError):
+    """Shard retries exhausted; ``.report`` is the :class:`FailureReport`."""
+
+    def __init__(self, report: FailureReport, msg: Optional[str] = None):
+        super().__init__(msg or ("sharded materialization failed after "
+                                 f"retries: {report.summary()}"))
+        self.report = report
+
+
 class TaskGroupError(RuntimeError):
     """Exception-group-style aggregate of every task-body failure.
 
@@ -169,15 +186,133 @@ class RetryPolicy:
     """Bounded exponential backoff for failed attempts.
 
     ``timeout`` bounds how long a rank waits on an empty inbox before it
-    reports a stall (``None``: the distributed driver's default).  A fault
-    that fails ``times <= max_retries`` successive attempts is recoverable
-    under this policy by construction.
+    reports a stall (``None``: the distributed run's default), and is
+    the per-wave wait of a shard round before outstanding jobs are
+    declared hung and resubmitted (``None`` waits forever — hang
+    detection off).  A fault that fails ``times <= max_retries``
+    successive attempts is recoverable under this policy by construction.
     """
 
     max_retries: int = 3
     base_delay: float = 0.01
     backoff: float = 2.0
     timeout: Optional[float] = None
+
+
+def run_round(fn: Callable, jobs: list, pool, *,
+              policy: Optional[RetryPolicy] = None,
+              plan: Optional[FaultPlan] = None,
+              round_no: int = 0,
+              pool_factory: Optional[Callable] = None):
+    """Run one round of shard jobs with retry/backoff/timeout recovery.
+
+    ``fn`` is a picklable worker entry taking ``(job, fault, attempt)``
+    payloads.  Without a policy (and without faults) this is exactly
+    ``pool.map`` — the fault-free fast path pays nothing.  With one, jobs
+    are submitted individually; failures (worker exceptions, broken pools,
+    per-wave timeouts) are retried with exponential backoff up to
+    ``max_retries`` attempts each.  A broken pool is torn down and rebuilt
+    via ``pool_factory`` when the caller owns it; without a factory a
+    broken pool is unrecoverable.  Returns ``(results, pool)`` — results
+    in job order, and the (possibly rebuilt) pool for the next round.
+
+    Raises :class:`ShardRecoveryError` with a :class:`FailureReport` when
+    any job exhausts its budget — never returns partial results.
+    """
+    if policy is None and plan is None:
+        return list(pool.map(fn, [(j, None, 0) for j in jobs])), pool
+    if policy is None:
+        policy = RetryPolicy()
+
+    n = len(jobs)
+    results = [None] * n
+    done = [False] * n
+    attempts = [0] * n
+    errors: dict[int, list] = {}
+    pending = list(range(n))
+    dead: list[int] = []
+    while pending:
+        futs = {}
+        submit_err = None
+        for i in pending:
+            fault = plan.shard_fault(round_no, i) if plan is not None else None
+            try:
+                futs[pool.submit(fn, (jobs[i], fault, attempts[i]))] = i
+            except (BrokenExecutor, RuntimeError) as e:
+                submit_err = e
+                break
+        failed_now: list[tuple[int, BaseException]] = []
+        requeued: list[int] = []
+        if futs:
+            done_set, not_done = _fwait(set(futs), timeout=policy.timeout)
+            for f in done_set:
+                i = futs[f]
+                try:
+                    results[i] = f.result()
+                    done[i] = True
+                except BaseException as e:  # noqa: BLE001 — any worker death
+                    failed_now.append((i, e))
+            for f in not_done:
+                i = futs[f]
+                if f.cancel():
+                    # never started — it was queued behind a stalled
+                    # worker.  The job is blameless: resubmit without
+                    # charging its retry budget.
+                    requeued.append(i)
+                    continue
+                failed_now.append((i, TimeoutError(
+                    f"shard job {i} (round {round_no}) exceeded the "
+                    f"{policy.timeout}s round timeout")))
+            if not done_set and not failed_now and requeued \
+                    and submit_err is None:
+                # dead spin: nothing ran, nothing was charged — every
+                # worker is wedged by an abandoned task.  Charge the
+                # queued jobs so the budget still bounds total waiting.
+                for i in requeued:
+                    failed_now.append((i, TimeoutError(
+                        f"shard job {i} (round {round_no}) starved: all "
+                        "workers wedged past the round timeout")))
+                requeued = []
+        if submit_err is not None:
+            for i in pending:
+                if not done[i] and i not in requeued \
+                        and all(j != i for j, _ in failed_now):
+                    failed_now.append((i, submit_err))
+        pending = requeued
+        broken = submit_err is not None
+        for i, e in failed_now:
+            broken = broken or isinstance(e, BrokenExecutor)
+            errors.setdefault(i, []).append(e)
+            if plan is not None:
+                plan.record("shard_failure", (round_no, i), attempts[i], e)
+            attempts[i] += 1
+            if attempts[i] > policy.max_retries:
+                dead.append(i)
+            else:
+                pending.append(i)
+        if dead:
+            report = FailureReport(
+                context="sharded",
+                failed=[((round_no, i), repr(errors[i][-1])) for i in dead],
+                executed=sum(done),
+                total=n,
+                attempts={(round_no, i): attempts[i] for i in errors})
+            raise ShardRecoveryError(report)
+        if broken:
+            if pool_factory is None:
+                report = FailureReport(
+                    context="sharded",
+                    failed=[((round_no, i), "pool broken (caller-owned, "
+                             "cannot rebuild)") for i in pending],
+                    executed=sum(done), total=n,
+                    attempts={(round_no, i): attempts[i] for i in errors})
+                raise ShardRecoveryError(report)
+            pool.shutdown(wait=False)
+            pool = pool_factory()
+        if pending:
+            worst = max(attempts[i] for i in pending)
+            time.sleep(policy.base_delay * policy.backoff ** (worst - 1))
+    return results, pool
 
 
 # ------------------------------------------------------------ poisoned cone

@@ -22,6 +22,7 @@ execution inside the task.
 from __future__ import annotations
 
 import itertools
+import os
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
@@ -87,14 +88,6 @@ def _map_local(keys: "np.ndarray", mins, strides,
     if n and keys[0] == 0 and int(keys[-1]) == n - 1:
         return k
     return np.searchsorted(keys, k)
-
-
-def _in_process(shards: int) -> None:
-    """Refuse a sharded generation scan: only the in-process scan is ported."""
-    if int(shards or 0) > 1:
-        raise NotImplementedError(
-            f"shards={shards}: the sharded generation scan is not ported; "
-            "build the graph in process (shards=0)")
 
 
 def _contains_int(ineqs: tuple, eqs: tuple, col: tuple) -> bool:
@@ -170,7 +163,7 @@ class _TiledDep:
     # lazy joint nest over (src dims, tgt dims): one vectorized scan of this
     # polyhedron yields every edge of the dependence (numpy backend)
     joint_nest: Optional[LoopNest] = None
-    # position in TiledTaskGraph.tiled_deps (keys IndexedGraph.dep_spans)
+    # position in TiledTaskGraph.tiled_deps — the shard planner's unit key
     idx: int = -1
 
 
@@ -256,6 +249,9 @@ class TiledTaskGraph:
         # depends only on the graph, not on params).
         self._roots_projs: Optional[dict[str, list[Polyhedron]]] = None
         self._roots_rows: dict[str, list[tuple[tuple, tuple]]] = {}
+        # parent-side restricted nests for sharded block counting
+        # (("diag", dep index) -> sharded self-pair polyhedron; see .shard)
+        self._shard_nests: dict = {}
 
     # ------------------------------------------------------------- tasks
     def tasks(self, params: dict[str, int]) -> Iterator[TaskId]:
@@ -337,20 +333,36 @@ class TiledTaskGraph:
                             for n, projs in out.items()}
         return out
 
-    def roots(self, params: dict[str, int],
-              shards: int = 0) -> Iterator[TaskId]:
+    def roots(self, params: dict[str, int], shards: Optional[int] = None,
+              parallel: bool = False, pool=None, faults=None,
+              recovery=None) -> Iterator[TaskId]:
         """Tasks with no predecessors (the master's scan, made O(1)-startup by
         preschedule in the autodec model).
 
-        ``shards`` is the generation fan-out; only in-process scans
-        (``0``/``1``) are ported, a larger count raises
-        ``NotImplementedError``.
+        The generation knobs are those of :meth:`index_graph`.  Sharded
+        runs derive the root set from the merged index graph (``pred_n ==
+        0`` per statement block) — same tasks, same order as the
+        in-process scans — and ``faults``/``recovery`` reach those scans.
         """
-        _in_process(shards)
+        if self._resolve_shards(shards, parallel) > 1:
+            return self._roots_indexed(self.index_graph(
+                params, shards, parallel, pool, faults, recovery))
         pv = self._pv(params)
         if self.backend == "numpy":
             return self._roots_numpy(pv)
         return self._roots_scalar(pv)
+
+    def _roots_indexed(self, ig: "IndexedGraph") -> Iterator[TaskId]:
+        """Zero in-degree tasks straight from merged index arrays."""
+        off = 0
+        for name, arr in ig.stmt_blocks:
+            n = arr.shape[0]
+            idx = np.flatnonzero(ig.pred_n[off:off + n] == 0)
+            if idx.size:
+                rows = arr[idx].tolist()
+                for r in rows:
+                    yield (name, tuple(r))
+            off += n
 
     def _roots_scalar(self, pv: list[int]) -> Iterator[TaskId]:
         self.roots_polyhedra()
@@ -423,7 +435,8 @@ class TiledTaskGraph:
             td.joint_nest = LoopNest(td.delta_t)
         return td.joint_nest
 
-    def _stmt_index(self, pv: list[int], with_tasks: bool = True) -> dict:
+    def _stmt_index(self, pv: list[int], with_tasks: bool = True,
+                    tiles: Optional[dict] = None) -> dict:
         """Per statement: coord array, ravel-key index, optional TaskIds.
 
         Tile coordinates are encoded into mixed-radix keys over the
@@ -432,19 +445,24 @@ class TiledTaskGraph:
         no per-task hashing anywhere in the batch paths.  TaskId tuples
         (the scalar-world labels) are only built when asked for: the pure
         array paths (``index_graph``) never pay the per-task tuple cost.
+        ``tiles`` injects pre-scanned coordinate blocks (the sharded merge
+        path) in place of in-process enumeration.
         """
         info = {}
         for name in self.program.statements:
-            arr = self.tile_nests[name].iterate_array(pv)
+            arr = (tiles[name] if tiles is not None
+                   else self.tile_nests[name].iterate_array(pv))
             ts = _task_ids(name, arr) if with_tasks else None
             keys, mins, strides = _coord_keys(arr)
             info[name] = (ts, keys, mins, strides, arr)
         return info
 
-    def _dep_edges(self, td: _TiledDep, pv: list[int]) -> "np.ndarray":
+    def _dep_edges(self, td: _TiledDep, pv: list[int],
+                   raw: Optional["np.ndarray"] = None) -> "np.ndarray":
         """All (src tile, tgt tile) edge rows of one dependence, self pairs
-        excluded — a single vectorized scan of the joint polyhedron."""
-        edges = self._joint_nest(td).iterate_array(pv)
+        excluded — a single vectorized scan of the joint polyhedron, or the
+        merged per-shard blocks of that same scan (``raw``)."""
+        edges = raw if raw is not None else self._joint_nest(td).iterate_array(pv)
         ns = self.tilings[td.dep.src].ndim
         if td.dep.src == td.dep.tgt and edges.shape[0]:
             keep = (edges[:, :ns] != edges[:, ns:]).any(axis=1)
@@ -460,14 +478,23 @@ class TiledTaskGraph:
             n += info[name][4].shape[0]
         return base
 
-    def _edge_indices(self, td: _TiledDep, pv: list[int], info,
+    def _edge_indices(self, td: _TiledDep, pv: list[int], info, scans,
                       base: dict[str, int], global_ids: bool = False):
         """One dependence's edges as (src, tgt) task-index columns.
 
-        Self pairs are dropped; raw rows map through :func:`_map_local`.
+        Self pairs are dropped.  Worker-mapped sharded scans pass through
+        untouched (they are already global ids); raw rows — single-process
+        or sharded-raw — map through :func:`_map_local`.
         """
         sname, tname = td.dep.src, td.dep.tgt
-        edges = self._dep_edges(td, pv)
+        if scans is not None and td.idx in scans.edges_idx:
+            gsrc, gtgt = scans.edges_idx[td.idx]
+            if global_ids:
+                return gsrc, gtgt
+            return gsrc - base[sname], gtgt - base[tname]
+        edges = self._dep_edges(
+            td, pv,
+            raw=scans.edges_raw.get(td.idx) if scans is not None else None)
         if not edges.shape[0]:
             z = np.zeros(0, dtype=np.int64)
             return z, z
@@ -480,8 +507,10 @@ class TiledTaskGraph:
             return src_idx + base[sname], tgt_idx + base[tname]
         return src_idx, tgt_idx
 
-    def _materialize_numpy(self, pv: list[int]) -> "MaterializedGraph":
-        info = self._stmt_index(pv)
+    def _materialize_numpy(self, pv: list[int],
+                           scans=None) -> "MaterializedGraph":
+        info = self._stmt_index(
+            pv, tiles=scans.tiles if scans is not None else None)
         base = self._stmt_bases(info)
         tasks: list[TaskId] = []
         succ: dict[TaskId, list[TaskId]] = {}
@@ -497,7 +526,7 @@ class TiledTaskGraph:
         for name in self.program.statements:
             for td in self._out[name]:
                 tgt_name = td.dep.tgt
-                src_idx, tgt_idx = self._edge_indices(td, pv, info, base)
+                src_idx, tgt_idx = self._edge_indices(td, pv, info, scans, base)
                 ne = src_idx.shape[0]
                 if not ne:
                     continue
@@ -519,8 +548,26 @@ class TiledTaskGraph:
             pred_n.update(zip(info[name][0], pred_counts[name].tolist()))
         return MaterializedGraph(tasks, succ, pred_n)
 
+    def _resolve_shards(self, shards: Optional[int], parallel) -> int:
+        """``shards=``/``parallel=`` -> effective shard count (0 = in-process).
+
+        ``parallel=True`` is the convenience spelling for one shard per
+        available core; an explicit ``shards=`` always wins.
+        """
+        if shards is None and parallel:
+            return os.cpu_count() or 1
+        return int(shards or 0)
+
+    def _sharded_scans(self, params: dict[str, int], shards: int,
+                       pool=None, faults=None, recovery=None):
+        from .shard import scan_sharded  # local import: avoid cycle
+        return scan_sharded(self, params, shards, pool=pool,
+                            faults=faults, recovery=recovery)
+
     def index_graph(self, params: dict[str, int],
-                    shards: int = 0) -> "IndexedGraph":
+                    shards: Optional[int] = None, parallel: bool = False,
+                    pool=None, faults=None,
+                    recovery=None) -> "IndexedGraph":
         """The whole task graph as flat index arrays (no per-task tuples).
 
         The numpy backend's native graph product: tasks are global integer
@@ -530,13 +577,25 @@ class TiledTaskGraph:
         array output: TaskId labels are derived lazily on access, so
         generation itself never touches per-task Python objects.
 
-        ``shards`` is the generation fan-out; only in-process scans
-        (``0``/``1``) are ported, a larger count raises
-        ``NotImplementedError``.
+        ``shards`` is the generation fan-out: above 1 the scans run on a
+        process pool (:mod:`.shard`) and their blocks merge byte-identical
+        to the in-process scans; ``parallel=True`` without ``shards`` means
+        one shard per core.  ``pool`` reuses a caller's
+        ``ProcessPoolExecutor`` (never rebuilt: a broken caller-owned pool
+        raises :class:`~.recovery.ShardRecoveryError`); ``faults`` (a
+        :class:`~.faults.FaultPlan`) and ``recovery`` (a
+        :class:`~.recovery.RetryPolicy`) arm injection and retry in the
+        pool rounds.  In process, ``pool``/``faults``/``recovery`` have
+        nothing to act on.
         """
-        _in_process(shards)
+        n_shards = self._resolve_shards(shards, parallel)
+        scans = (self._sharded_scans(params, n_shards, pool=pool,
+                                     faults=faults, recovery=recovery)
+                 if n_shards > 1 else None)
         pv = self._pv(params)
-        info = self._stmt_index(pv, with_tasks=False)
+        info = self._stmt_index(
+            pv, with_tasks=False,
+            tiles=scans.tiles if scans is not None else None)
         base = self._stmt_bases(info)
         blocks = [(name, info[name][4]) for name in self.program.statements]
         n = sum(arr.shape[0] for _, arr in blocks)
@@ -545,7 +604,7 @@ class TiledTaskGraph:
         off = 0
         for name in self.program.statements:
             for td in self._out[name]:
-                gsrc, gtgt = self._edge_indices(td, pv, info, base,
+                gsrc, gtgt = self._edge_indices(td, pv, info, scans, base,
                                                 global_ids=True)
                 ne = int(gsrc.shape[0])
                 spans[td.idx] = (off, off + ne)
@@ -562,7 +621,9 @@ class TiledTaskGraph:
 
     # ------------------------------------------------------------ materialize
     def materialize(self, params: dict[str, int],
-                    shards: int = 0) -> "MaterializedGraph":
+                    shards: Optional[int] = None, parallel: bool = False,
+                    pool=None, faults=None,
+                    recovery=None) -> "MaterializedGraph":
         """Explicit adjacency (for tests / the prescribed model / wavefronts).
 
         Batched: the parameter vector, compiled scan functions, and
@@ -572,11 +633,19 @@ class TiledTaskGraph:
         task list, per-task successor order, and pred counts are identical
         to the per-task path.  The ``numpy`` backend goes further: each
         dependence's edge list is one vectorized scan of the joint Δ_T
-        polyhedron (see ``_materialize_numpy``).  ``shards`` as in
-        :meth:`index_graph`.
+        polyhedron (see ``_materialize_numpy``).  The generation knobs are
+        those of :meth:`index_graph`: sharded runs scan on a process pool
+        and merge the blocks — identical graph, any backend.  Callers that
+        only need arrays should prefer :meth:`index_graph`, which never
+        builds the per-task dicts.
         """
-        _in_process(shards)
         pv = self._pv(params)
+        n_shards = self._resolve_shards(shards, parallel)
+        if n_shards > 1:
+            return self._materialize_numpy(
+                pv, scans=self._sharded_scans(params, n_shards, pool=pool,
+                                              faults=faults,
+                                              recovery=recovery))
         if self.backend == "numpy":
             return self._materialize_numpy(pv)
         tasks: list[TaskId] = []

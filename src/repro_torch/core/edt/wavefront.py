@@ -77,19 +77,22 @@ class IndexedSchedule:
                 "avg_width": n / max(1, self.depth)}
 
 
-def synthesize(graph: TiledTaskGraph, params: dict,
-               shards: int = 0) -> WavefrontSchedule:
+def synthesize(graph: TiledTaskGraph, params: dict, shards=None,
+               parallel=False, pool=None, faults=None,
+               recovery=None) -> WavefrontSchedule:
     """Longest-path leveling of the tile graph.
 
     ``numpy``-backend graphs level from flat index arrays (whole wavefronts
     per step); the scalar path materializes and walks the dict graph.  Both
-    produce identical schedules.  ``shards`` as in
-    :meth:`TiledTaskGraph.index_graph` (in-process only: a larger count
-    raises ``NotImplementedError``).
+    produce identical schedules.  The generation knobs are those of
+    :meth:`TiledTaskGraph.index_graph`: sharded runs fan the underlying
+    scans across processes (any backend) — the schedule is unchanged, only
+    generation parallelizes.
     """
-    if int(shards or 0) > 1 or graph.backend == "numpy":
-        return _synthesize_from_ig(graph.index_graph(params, shards=shards))
-    g = graph.materialize(params, shards=shards)
+    if graph._resolve_shards(shards, parallel) > 1 or graph.backend == "numpy":
+        return _synthesize_from_ig(graph.index_graph(
+            params, shards, parallel, pool, faults, recovery))
+    g = graph.materialize(params)     # in process: the knobs act on nothing
     indeg = dict(g.pred_n)
     level = {t: 0 for t in g.tasks}
     cur = sorted(t for t in g.tasks if indeg[t] == 0)
@@ -193,17 +196,18 @@ def schedule_from_graph(ig: IndexedGraph) -> IndexedSchedule:
     return IndexedSchedule(levels=levels_from_array(level), level_of=level)
 
 
-def synthesize_indexed(graph: TiledTaskGraph, params: dict,
-                       shards: int = 0) -> tuple[IndexedGraph, IndexedSchedule]:
+def synthesize_indexed(graph: TiledTaskGraph, params: dict, shards=None,
+                       parallel=False, pool=None, faults=None,
+                       recovery=None) -> tuple[IndexedGraph, IndexedSchedule]:
     """Level the graph without ever leaving index space.
 
-    The million-task path: the index graph is leveled by
-    :func:`_level_array` and bucketed with one stable argsort — no TaskId
-    tuples, no per-task dicts.  Returns the graph too, since executors need
-    the id -> label blocks only if they label at all.  ``shards`` as in
-    :meth:`TiledTaskGraph.index_graph` (in-process only).
+    The sharded/million-task path: the (optionally sharded) index graph is
+    leveled by :func:`_level_array` and bucketed with one stable argsort —
+    no TaskId tuples, no per-task dicts.  Returns the graph too, since
+    executors need the id -> label blocks only if they label at all.  The
+    generation knobs are those of :meth:`TiledTaskGraph.index_graph`.
     """
-    ig = graph.index_graph(params, shards=shards)
+    ig = graph.index_graph(params, shards, parallel, pool, faults, recovery)
     return ig, schedule_from_graph(ig)
 
 

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro.core import programs as ref_programs  # noqa: E402
+from repro.core.edt import ExecutionConfig as RefExecutionConfig  # noqa: E402
 from repro.core.edt import TiledTaskGraph as RefGraph  # noqa: E402
 from repro.core.edt import synthesize_indexed as ref_synthesize  # noqa: E402
 from repro.core.poly import Tiling as RefTiling  # noqa: E402
@@ -85,11 +86,23 @@ def test_scalar_backends_materialize_like_reference(backend):
 
 
 def test_sharded_generation_is_not_ported():
-    _, port = _graphs("trisolv", (2, 2))
-    for call in (port.index_graph, port.materialize, port.roots):
-        with pytest.raises(NotImplementedError, match="sharded"):
-            call({"N": 9}, shards=2)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        synthesize_indexed(port, {"N": 9}, shards=4)
-    assert port.index_graph({"N": 9}, shards=1).n == \
-        port.index_graph({"N": 9}).n
+    """The same calls at ``shards=2``/``4`` give the reference's sharded
+    products byte for byte; ``shards=1`` stays in process."""
+    ref, port = _graphs("trisolv", (2, 2))
+    params = {"N": 9}
+    cfg = RefExecutionConfig(shards=2)
+    rig, pig = ref.index_graph(params, config=cfg), port.index_graph(
+        params, shards=2)
+    for field in ("edge_src", "edge_tgt", "pred_n"):
+        assert _same(getattr(pig, field), getattr(rig, field)), field
+    rg, pg = ref.materialize(params, config=cfg), port.materialize(
+        params, shards=2)
+    assert (pg.tasks, pg.succ, pg.pred_n) == (rg.tasks, rg.succ, rg.pred_n)
+    assert list(port.roots(params, shards=2)) == \
+        list(ref.roots(params, config=cfg))
+    _, rsched = ref_synthesize(ref, params,
+                               config=RefExecutionConfig(shards=4))
+    _, psched = synthesize_indexed(port, params, shards=4)
+    assert _same(psched.level_of, rsched.level_of)
+    assert port.index_graph(params, shards=1).n == \
+        port.index_graph(params).n

@@ -156,9 +156,15 @@ def test_closed_form_level_matches_reference(name):
 
 
 def test_synthesize_refuses_sharded_generation():
-    _, pg = _graphs("stencil1d", (2, 2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        edt.synthesize(pg, {"T": 4, "N": 4}, shards=2)
+    """``synthesize`` with ``shards=2`` on the scalar backend levels the
+    pool-built graph exactly as the reference's sharded ``synthesize``."""
+    rg, pg = _graphs("stencil1d", (2, 2))
+    params = {"T": 4, "N": 4}
+    want = ref.synthesize(rg, params,
+                          config=ref.ExecutionConfig(shards=2))
+    got = edt.synthesize(pg, params, shards=2)
+    assert got.levels == want.levels and got.level_of == want.level_of
+    assert got.levels == edt.synthesize(pg, params).levels
 
 
 # =============================================================== codegen
