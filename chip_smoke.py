@@ -83,18 +83,37 @@ attention) at full width and depth, f32 weights drawn from a seed.
     order equal to the schedule's; phase 8's NumPy inline run read, not
     run again), and the threaded autodec runtime at 33,800 tasks (each
     task exactly once, every successor after its predecessor).  Phase 14 runs right after
-    phase 15, outside every kernel's counted launches;
+    phase 16, outside every kernel's counted launches;
 15. the slice's graph generated on a process pool (the sharded scan of
     ``core/edt/shard.py``), right after phase 8: the host's cores and
-    ``/dev/shm`` room; ``synthesize_indexed(graph, params, shards=s)``
-    at 2 and 4 shards and twice at 4 on one pool of the caller's, the
-    host seconds of each and the transport (shared memory or pickle) that
-    carried the blocks, each graph and schedule byte-identical to the
-    in-process ones; ``DeviceExecutor(graph, params, shards=4)``'s
+    ``/dev/shm`` room; ``synthesize_indexed(graph, params,
+    config=ExecutionConfig(shards=s))`` at 2 and 4 shards and twice at 4
+    on one pool of the caller's, the host seconds of each and the
+    transport (shared memory or pickle) that carried the blocks, each
+    graph and schedule byte-identical to the in-process ones;
+    ``DeviceExecutor(graph, params, config=ExecutionConfig(shards=4))``'s
     discover sweep through ``wavefront_step`` with ``level_of``
     byte-identical to phase 4's and one launch a level (counted into the
     kernel's record); a worker crash at 2 shards recovered byte-identical
-    with no segment of the phase left in ``/dev/shm``.
+    with no segment of the phase left in ``/dev/shm``;
+16. the schedule service (``core/edt/{config,cache,service}.py``), right
+    after phase 15: a ``Session(ExecutionConfig(backend="numpy",
+    shards=4))`` and its ``ScheduleService`` over the slice's program.
+    Eight concurrent clients ask for the packed columns at T=28 (one cold
+    fill on the session's fork pool, seven coalesced), then eight at T=32,
+    filled incrementally from the T=28 entry (outer blocks reused) and
+    byte-identical to phase 4's graph and schedule, timed against a cold
+    fill of the same key on the same pool; 64 warm requests answered
+    inline, their latencies, and the cache's entries and bytes.  The
+    served columns then drive the card: ``session.executor`` discover
+    through ``wavefront_step`` (one launch a level, byte-identical to
+    phase 4; its construction timed), replay validated,
+    ``session.fused_executor``'s f32 replay grid bit-identical to phase
+    6's and ``session.distributed``'s two-rank device run byte-identical
+    to phase 8's (launches counted into the kernel's record).  Last the
+    CLI ``python -m repro_torch.launch.edt_serve`` at the slice size over
+    stdin (a cold answer, a warm answer, a malformed request refused while
+    the server keeps serving) and its ``--demo``.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -135,6 +154,9 @@ SLICE_DEPTH, SLICE_WIDTH = 558, 3920
 CROSSOVER_REPEATS = 7                   # phase 14: runs of the crossover ladder
 SLICE_PRICE_REPEATS = 3                 # phase 14: of the slice's Sim and replay
 SHARD_ROUND_TIMEOUT = 120.0             # phase 15: seconds a pool round may take
+SERVICE_DONOR_T = 28                    # phase 16: the cold entry's T
+SERVICE_CLIENTS = 8                     # phase 16: clients a burst
+SERVICE_WARM = 64                       # phase 16: warm requests
 #: float64 sizes of the reference's fused suite (tests/test_fused_exec.py)
 CASES = [
     ("stencil1d", (2, 2), {"T": 6, "N": 15}),
@@ -341,10 +363,11 @@ def device_profile(fn):
 
 
 def edt_path(dev, card) -> tuple[dict, dict]:
-    """Phases 3 to 8, the EDT path.  Returns the slice's graph, schedule
-    and phase 8's two-rank NumPy inline seconds (for phase 14), and the
-    wavefront kernel's record (its launches counted over phases 4 to 6
-    and phase 8's device runs)."""
+    """Phases 3 to 8, 15 and 16, the EDT path.  Returns the slice's graph,
+    schedule and phase 8's two-rank NumPy inline seconds (for phase 14),
+    and the wavefront kernel's record (its launches counted over phases 4
+    to 6, phase 8's device runs, phase 15's sharded discover sweep and
+    phase 16's served runs)."""
     import torch
 
     from repro_torch.core.edt import (DeviceExecutor, FusedExecutor,
@@ -501,6 +524,7 @@ def edt_path(dev, card) -> tuple[dict, dict]:
     fused_launches = wavefront_step.launches - before
     _, t_fused_disc_warm = timed(fdex.run)
     main_launches = wavefront_step.launches
+    fused_grid = frep.final.cpu().numpy()
     hand = handwritten_solve(spec, state, params["T"], device=dev)
     _, t_hand = timed(lambda: handwritten_solve(spec, state, params["T"],
                                                 device=dev))
@@ -570,20 +594,23 @@ def edt_path(dev, card) -> tuple[dict, dict]:
         log(f"profile {label}: wall {wall:.3f} s under the profiler, device "
             f"busy {busy:.4f} s ({100 * busy / wall:.1f}%) in {count} "
             f"kernels; top (name, ms): {top}")
-    rank_launches, rank_steps, rank_err, inline_s = rank_path(
-        dev, ig, sched, run.level_of, check_step)
+    rank_launches, rank_steps, rank_err, inline_s, rank_level_of = \
+        rank_path(dev, ig, sched, run.level_of, check_step)
     max_err = max(max_err, rank_err)
     shard_launches = shard_path(dev, graph, params, ig, sched, run.level_of,
                                 t_synth)
+    service_launches = service_path(dev, ig, sched, run.level_of,
+                                    fused_grid, rank_level_of)
     slice_run = {"ig": ig, "sched": sched, "inline_s": inline_s}
     return slice_run, {
         "name": "wavefront_step", "route": "cuda",
         "source": "src/repro_torch/csrc/wavefront_step.cu",
         "replaces": "src/repro/core/edt/device.py:225",
         "launches": (main_launches + sum(rank_launches.values())
-                     + shard_launches),
+                     + shard_launches + service_launches),
         "launches_rank_engine": rank_launches,
-        "launches_sharded_discover": shard_launches, "matched": True,
+        "launches_sharded_discover": shard_launches,
+        "launches_service": service_launches, "matched": True,
         "frontiers_checked": steps + rank_steps, "max_abs_err": max_err,
         "ms": step_ms, "ms_cold_l2": step_cold_ms, "plain_ms": plain_ms,
         "host_us": step_host_us,
@@ -597,11 +624,13 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
     count (the count set to 0 just before each run, read just after), the
     rank frontiers on which the kernel was held against its plain version
     (``check_step``), the largest difference there, and the seconds of the
-    two-rank NumPy engine's inline run."""
+    two-rank NumPy engine's inline run, and the two-rank device run's
+    ``level_of`` (for phase 16)."""
     import importlib
 
-    from repro_torch.core.edt import (MESSAGE_LOSS, RANK_CRASH, Fault,
-                                      FaultPlan, RetryPolicy, StallError,
+    from repro_torch.core.edt import (MESSAGE_LOSS, RANK_CRASH,
+                                      ExecutionConfig, Fault, FaultPlan,
+                                      RetryPolicy, StallError,
                                       partition_graph, run_distributed)
     from repro_torch.core.edt.device import wavefront_step
 
@@ -702,8 +731,8 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
     policy = RetryPolicy(max_retries=3, base_delay=0.001)
     crash = FaultPlan(faults=(Fault(kind=RANK_CRASH, index=1, times=1),))
     crun, t_crash = timed(lambda: run_distributed(
-        ig, ranks=2, engine="device", device=dev, faults=crash,
-        recovery=policy))
+        ig, ranks=2, engine="device", device=dev,
+        config=ExecutionConfig(faults=crash, recovery=policy)))
     check(crun, "rank crash recovered", cross_of[2])
     if crun.attempts != 1 or [f[0] for f in crash.fired] != [RANK_CRASH]:
         raise AssertionError(f"rank crash: {crun.attempts} attempts, fired "
@@ -712,7 +741,8 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
                                    times=1),))
     t0 = time.perf_counter()
     try:
-        run_distributed(ig, ranks=2, engine="device", device=dev, faults=loss)
+        run_distributed(ig, ranks=2, engine="device", device=dev,
+                        config=ExecutionConfig(faults=loss))
     except StallError as e:
         report = e.report
     else:
@@ -723,8 +753,8 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
         raise AssertionError(f"message-loss stall report: {report.summary()}")
     loss = FaultPlan(faults=loss.faults)
     lrun, t_loss = timed(lambda: run_distributed(
-        ig, ranks=2, engine="device", device=dev, faults=loss,
-        recovery=policy))
+        ig, ranks=2, engine="device", device=dev,
+        config=ExecutionConfig(faults=loss, recovery=policy)))
     check(lrun, "message loss recovered", cross_of[2])
     if lrun.attempts != 1 or [f[0] for f in loss.fired] != [MESSAGE_LOSS]:
         raise AssertionError(f"message loss: {lrun.attempts} attempts, "
@@ -740,18 +770,20 @@ def rank_path(dev, ig, sched, disc_level_of, check_step):
     log(f"profile device engine, 2 ranks: wall {wall:.3f} s under the "
         f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}%) in "
         f"{count} kernels; top (name, ms): {top}")
-    return launches, rank_steps, rank_err, run_s["numpy engine inline"]
+    return (launches, rank_steps, rank_err, run_s["numpy engine inline"],
+            warm_of[2].level_of)
 
 
 def shard_path(dev, graph, params, ig, sched, disc_level_of,
                t_synth) -> int:
     """Phase 15: the slice's graph generated on a process pool.
 
-    ``synthesize_indexed(graph, params, shards=s)`` at 2 and 4 shards on
-    pools of its own and twice at 4 on one pool of the caller's, each
-    byte-identical to the in-process graph and schedule of the host graph
-    section (``t_synth`` its seconds); ``DeviceExecutor(graph, params,
-    shards=4)``'s discover sweep, whose ``wavefront_step`` launches it
+    ``synthesize_indexed(graph, params, config=ExecutionConfig(shards=s))``
+    at 2 and 4 shards on pools of its own and twice at 4 on one pool of
+    the caller's, each byte-identical to the in-process graph and schedule
+    of the host graph section (``t_synth`` its seconds);
+    ``DeviceExecutor(graph, params, config=ExecutionConfig(shards=4))``'s
+    discover sweep, whose ``wavefront_step`` launches it
     returns (the count set to 0 just before the run, read just after);
     and a worker crash recovered byte-identical, with no segment of the
     phase left in ``/dev/shm``.  Every ``synthesize_indexed`` build runs
@@ -766,9 +798,10 @@ def shard_path(dev, graph, params, ig, sched, disc_level_of,
     import os
     from concurrent.futures import ProcessPoolExecutor
 
-    from repro_torch.core.edt import (WORKER_CRASH, DeviceExecutor, Fault,
-                                      FaultPlan, RetryPolicy,
-                                      schedule_from_graph, synthesize_indexed)
+    from repro_torch.core.edt import (WORKER_CRASH, DeviceExecutor,
+                                      ExecutionConfig, Fault, FaultPlan,
+                                      RetryPolicy, schedule_from_graph,
+                                      synthesize_indexed)
     from repro_torch.core.edt import shard
     from repro_torch.core.edt.device import wavefront_step
 
@@ -833,8 +866,8 @@ def shard_path(dev, graph, params, ig, sched, disc_level_of,
     try:
         def build(label, **kw):
             t0 = time.perf_counter()
-            got, got_sched = synthesize_indexed(graph, params,
-                                                recovery=policy, **kw)
+            got, got_sched = synthesize_indexed(
+                graph, params, config=ExecutionConfig(recovery=policy, **kw))
             t = time.perf_counter() - t0
             check(got, got_sched, label)
             transport, need, t_scan, secs = runs[-1]
@@ -858,7 +891,8 @@ def shard_path(dev, graph, params, ig, sched, disc_level_of,
             + (f" against {room[1]} B free" if room else ""))
 
         t0 = time.perf_counter()
-        ex = DeviceExecutor(graph, params, shards=4, device=dev)
+        ex = DeviceExecutor(graph, params, config=ExecutionConfig(shards=4),
+                            device=dev)
         t_build = time.perf_counter() - t0
         wavefront_step.launches = 0
         drun, t_run = timed(ex.run)
@@ -869,7 +903,8 @@ def shard_path(dev, graph, params, ig, sched, disc_level_of,
         if launches != drun.counters.depth:
             raise AssertionError(f"sharded DeviceExecutor: {launches} kernel "
                                  f"launches for {drun.counters.depth} steps")
-        log(f"phase 15 DeviceExecutor(graph, params, shards=4): graph and "
+        log(f"phase 15 DeviceExecutor(graph, params, "
+            f"config=ExecutionConfig(shards=4)): graph and "
             f"packing {t_build:.3f} s by {runs[-1][0]}; discover "
             f"{t_run:.3f} s, level_of byte-identical to phase 4's; kernel "
             f"launches {launches} == steps {drun.counters.depth}")
@@ -878,8 +913,9 @@ def shard_path(dev, graph, params, ig, sched, disc_level_of,
         plan = FaultPlan(faults=(Fault(kind=WORKER_CRASH, round=1, index=0,
                                        times=1),))
         t0 = time.perf_counter()
-        got, got_sched = synthesize_indexed(graph, params, shards=2,
-                                            faults=plan, recovery=policy)
+        got, got_sched = synthesize_indexed(
+            graph, params, config=ExecutionConfig(shards=2, faults=plan,
+                                                  recovery=policy))
         t_fault = time.perf_counter() - t0
         check(got, got_sched, "worker crash recovered")
         del got, got_sched
@@ -896,6 +932,272 @@ def shard_path(dev, graph, params, ig, sched, disc_level_of,
         shard.scan_sharded, shard._Segments._new = scan_sharded, new_segment
         shard.run_round = run_round
     log(f"phase 15 wall {time.perf_counter() - t_phase:.3f} s")
+    return launches
+
+def service_path(dev, ig, sched, disc_level_of, fused_grid,
+                 rank_level_of) -> int:
+    """Phase 16: the schedule service over the slice's program.
+
+    A ``Session(ExecutionConfig(backend="numpy", shards=4))`` owns the
+    fork pool (NumPy-only workers, as in phase 15) and the graph cache;
+    its ``ScheduleService`` answers concurrent clients.  Every check
+    raises.  Returns ``wavefront_step``'s launches in the served discover
+    sweep and the served two-rank device run (the count set to 0 just
+    before each, read just after)."""
+    import asyncio
+    import os
+
+    from repro_torch.core.edt import (CachePolicy, ExecutionConfig,
+                                      GraphCache, ScheduleService, Session,
+                                      shard)
+    from repro_torch.core.edt.cache import (_dg_nbytes, _ds_nbytes,
+                                            _sched_nbytes)
+    from repro_torch.core.edt.device import wavefront_step
+    from repro_torch.core.poly import Tiling
+    from repro_torch.core.programs import PROGRAMS
+
+    t_phase = time.perf_counter()
+    name, tiles, params = SLICE
+    early = dict(params, T=SERVICE_DONOR_T)
+    session = Session(ExecutionConfig(backend="numpy", shards=4))
+    service = ScheduleService(session)
+    graph = session.graph(PROGRAMS[name](), {"S": Tiling(tiles)})
+    rounds, run_round = [], shard.run_round
+
+    def recording_round(*args, **kw):
+        t0 = time.perf_counter()
+        out = run_round(*args, **kw)
+        rounds.append(time.perf_counter() - t0)
+        return out
+
+    async def burst(p, n):
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*(service.packed(graph, p)
+                                     for _ in range(n)))
+        return got, time.perf_counter() - t0
+
+    def counts():
+        st = service.stats()
+        return st["cold"], st["coalesced"], st["warm"]
+
+    shard.run_round = recording_round
+    try:
+        # ------------------------------------- 1. cold, coalesced, sharded
+        got, t_cold = asyncio.run(burst(early, SERVICE_CLIENTS))
+        cold_rounds = list(rounds)
+        if counts() != (1, SERVICE_CLIENTS - 1, 0):
+            raise AssertionError(f"cold burst: (cold, coalesced, warm) "
+                                 f"{counts()}, want 1 cold fill for "
+                                 f"{SERVICE_CLIENTS} clients")
+        if len({(id(dg), id(ds)) for dg, ds in got}) != 1:
+            raise AssertionError("cold burst: clients hold different "
+                                 "objects")
+        early_n = got[0][0].n
+        log(f"phase 16 cold burst: {SERVICE_CLIENTS} clients, packed at "
+            f"{early} ({early_n} tasks): one fill on the session's fork "
+            f"pool at 4 shards ({os.cpu_count()} cores), "
+            f"{SERVICE_CLIENTS - 1} coalesced, wall {t_cold:.3f} s; its "
+            f"pool rounds (count, tile, edge; the first starts the "
+            f"workers) {'/'.join(f'{x:.3f}' for x in cold_rounds)} s")
+
+        rounds.clear()
+        info0 = session.cache.info()
+        got, t_inc = asyncio.run(burst(params, SERVICE_CLIENTS))
+        info1 = session.cache.info()
+        if counts() != (2, 2 * (SERVICE_CLIENTS - 1), 0):
+            raise AssertionError(f"incremental burst: (cold, coalesced, "
+                                 f"warm) {counts()}")
+        reused = info1["units_reused"] - info0["units_reused"]
+        if info1["incremental_hits"] - info0["incremental_hits"] != 1 or \
+                reused <= 0:
+            raise AssertionError(f"the T={params['T']} fill was not "
+                                 f"incremental: {info1}")
+        changed = frozenset(i for i, nm in enumerate(graph.param_names)
+                            if early[nm] != params[nm])
+        units = [(kind, key) for kind, key, nest in graph.scan_units()
+                 if nest.ndim > 0 and changed <= nest.outer_only_params()]
+        dg, ds = got[0]
+        sig, ssched = session.schedule(graph, params)
+        for field in ("edge_src", "edge_tgt", "pred_n"):
+            if getattr(sig, field).tobytes() != getattr(ig, field).tobytes():
+                raise AssertionError(f"served graph: {field} differs from "
+                                     "phase 4's")
+        if [(n, a.tobytes()) for n, a in sig.stmt_blocks] != [
+                (n, a.tobytes()) for n, a in ig.stmt_blocks]:
+            raise AssertionError("served graph: stmt_blocks differ from "
+                                 "phase 4's")
+        if ssched.level_of.tobytes() != sched.level_of.tobytes() or \
+                ds.level_of.tobytes() != sched.level_of.tobytes():
+            raise AssertionError("served schedule differs from the host "
+                                 "schedule")
+        inc_rounds = list(rounds)
+        rounds.clear()
+        cold_cache = GraphCache(CachePolicy(incremental=False))
+        (cdg, cds), t_full = timed(lambda: cold_cache.packed(
+            graph, params, session.runtime_config()))
+        if cdg.dec_src.tobytes() != dg.dec_src.tobytes() or \
+                cds.lvl_tgt.tobytes() != ds.lvl_tgt.tobytes():
+            raise AssertionError("cold fill differs from the incremental "
+                                 "one")
+        log(f"phase 16 incremental burst: {SERVICE_CLIENTS} clients, packed "
+            f"at {params} (n={sig.n} E={sig.n_edges} depth {ssched.depth}): "
+            f"one fill stitched from the T={early['T']} entry, "
+            f"{reused} of {len(graph.scan_units())} scan units reused "
+            f"{units}, the rest scanned in process, wall {t_inc:.3f} s "
+            f"(pool rounds: {len(inc_rounds)}); a cold fill "
+            f"of the same key on the same pool {t_full:.3f} s (rounds "
+            f"{'/'.join(f'{x:.3f}' for x in rounds)} s); graph and "
+            f"schedule byte-identical to phase 4's")
+        del cold_cache, cdg, cds
+    finally:
+        shard.run_round = run_round
+
+    # ------------------------------------------------------------- 2. warm
+    async def warm(n):
+        lat = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            got = await service.packed(graph, params)
+            lat.append(time.perf_counter() - t0)
+            if got[0] is not dg or got[1] is not ds:
+                raise AssertionError("a warm answer is not the cached one")
+        return lat
+
+    before = counts()
+    lat = asyncio.run(warm(SERVICE_WARM))
+    if counts() != (before[0], before[1], before[2] + SERVICE_WARM):
+        raise AssertionError(f"warm requests: (cold, coalesced, warm) "
+                             f"{before} -> {counts()}")
+
+    def cache_line():
+        info = session.cache.info()
+        per = []
+        for p in (early, params):
+            parts = {"ig": session.cache.peek(graph, p, "ig"),
+                     "schedule": session.cache.peek(graph, p, "schedule"),
+                     "dg": session.cache.peek(graph, p, "dg"),
+                     "ds": session.cache.peek(graph, p, "ds"),
+                     "fo": session.cache.peek(graph, p, "fo")}
+            sizes = {"ig": parts["ig"].nbytes,
+                     "schedule": _sched_nbytes(parts["schedule"]),
+                     "dg": _dg_nbytes(parts["dg"]),
+                     "ds": _ds_nbytes(parts["ds"]),
+                     "fo": (int(parts["fo"].nbytes)
+                            if parts["fo"] is not None else 0)}
+            per.append(f"T={p['T']} {sum(sizes.values())} B {sizes}")
+        return (f"{info['entries']} entries, {info['bytes']} B of "
+                f"max_bytes {info['max_bytes']} ({'; '.join(per)}); hits "
+                f"{info['hits']} misses {info['misses']} evictions "
+                f"{info['evictions']}")
+
+    lat_us = sorted(x * 1e6 for x in lat)
+    log(f"phase 16 warm: {SERVICE_WARM} requests answered inline, latency "
+        f"median {statistics.median(lat_us):.1f} us, max {lat_us[-1]:.1f} "
+        f"us; cache {cache_line()}")
+
+    # --------------------------------------- 3. the served columns, on card
+    t0 = time.perf_counter()
+    ex = session.executor(graph, params, replay=False, device=dev)
+    t_build = time.perf_counter() - t0
+    wavefront_step.launches = 0
+    drun, t_disc = timed(ex.run)
+    launches = disc_launches = wavefront_step.launches
+    if drun.level_of.tobytes() != disc_level_of.tobytes():
+        raise AssertionError("served discover: level_of differs from "
+                             "phase 4's")
+    if disc_launches != drun.counters.depth or drun.counters.depth != \
+            SLICE_DEPTH:
+        raise AssertionError(f"served discover: {disc_launches} kernel "
+                             f"launches for {drun.counters.depth} steps")
+    rex = session.executor(graph, params, replay=True, device=dev)
+    rrun, t_replay = timed(rex.run)
+    if (rrun.mode, rrun.counters.tasks_finished, rrun.counters.depth) != (
+            "replay", ig.n, SLICE_DEPTH):
+        raise AssertionError(f"served replay: {rrun.counters.summary()}")
+    t0 = time.perf_counter()
+    fex = session.fused_executor(graph, params, device=dev)
+    t_fbuild = time.perf_counter() - t0
+    frun, t_fused = timed(fex.run)
+    got = frun.final.cpu().numpy()
+    if got.dtype != fused_grid.dtype or got.tobytes() != fused_grid.tobytes():
+        raise AssertionError("served fused replay grid differs from phase "
+                             "6's")
+    wavefront_step.launches = 0
+    dist, t_dist = timed(lambda: session.distributed(
+        graph, params, ranks=2, engine="device", device=dev))
+    launches += wavefront_step.launches
+    if dist.level_of.tobytes() != rank_level_of.tobytes():
+        raise AssertionError("served 2-rank device run differs from "
+                             "phase 8's")
+    log(f"phase 16 served columns on the card: executor construction "
+        f"{t_build * 1e3:.3f} ms (packs nothing); discover {t_disc:.3f} s, "
+        f"level_of byte-identical to phase 4's, kernel launches "
+        f"{disc_launches} == steps {drun.counters.depth}; replay "
+        f"validated {t_replay:.3f} s; fused executor construction "
+        f"{t_fbuild:.3f} s (origins packed once into the entry), f32 "
+        f"replay {t_fused:.3f} s, grid bit-identical to phase 6's; "
+        f"2-rank device run {t_dist:.3f} s, byte-identical to phase 8's, "
+        f"kernel launches {launches - disc_launches}")
+    log(f"phase 16 cache after the card's products: {cache_line()}")
+    service.close()
+    session.close()
+    del ex, rex, fex, drun, rrun, frun, dist
+
+    # ------------------------------------------------------------- 4. CLI
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    key = {"T": params["T"], "N": params["N"]}
+    lines = [json.dumps({"params": key, "kind": "packed"})] * 2 + [
+        json.dumps({"params": {"T": params["T"]}, "kind": "packed"})]
+    cmd = [sys.executable, "-m", "repro_torch.launch.edt_serve",
+           "--program", name, "--tile", ",".join(map(str, tiles)),
+           "--backend", "numpy", "--shards", "4"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, input="\n".join(lines) + "\n", env=env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    t_cli = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"edt_serve exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    answers = [json.loads(x) for x in out.stdout.splitlines()]
+    if len(answers) != 4:
+        raise AssertionError(f"edt_serve answered {out.stdout!r}")
+    want = {"ok": True, "tasks": ig.n, "edges": ig.n_edges,
+            "depth": SLICE_DEPTH}
+    for a, w in zip(answers[:2], (False, True)):
+        if {k: a.get(k) for k in want} != want or a.get("warm") is not w:
+            raise AssertionError(f"edt_serve answer {a}, want {want} with "
+                                 f"warm {w}")
+    if answers[2].get("ok") is not False or "N" not in answers[2]["error"]:
+        raise AssertionError(f"edt_serve took a request without N: "
+                             f"{answers[2]}")
+    stats = answers[3]["stats"]
+    # the request without N is a miss whose fill raises: it counts cold,
+    # and the cache holds only the one real fill
+    if (stats["requests"], stats["cold"], stats["warm"],
+            stats["cache"]["entries"]) != (3, 2, 1, 1):
+        raise AssertionError(f"edt_serve stats {stats}")
+    t0 = time.perf_counter()
+    demo = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.edt_serve", "--demo"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    t_demo = time.perf_counter() - t0
+    if demo.returncode != 0 or "warm burst" not in demo.stdout:
+        raise AssertionError(f"edt_serve --demo exited {demo.returncode}: "
+                             f"{demo.stderr[-2000:]}")
+    dstats = json.loads(demo.stdout[demo.stdout.index("{"):])["stats"]
+    log(f"phase 16 CLI at {key}: cold answer {answers[0]['ms']} ms, warm "
+        f"{answers[1]['ms']} ms, {answers[0]['tasks']} tasks "
+        f"{answers[0]['edges']} edges depth {answers[0]['depth']}; the "
+        f"request without N refused ({answers[2]['error']}) and the server "
+        f"kept serving; final stats requests {stats['requests']} cold "
+        f"{stats['cold']} (one fill) warm {stats['warm']}; process "
+        f"{t_cli:.3f} s; --demo {t_demo:.3f} s: "
+        + " / ".join(x for x in demo.stdout.splitlines()
+                     if x.startswith(("cold burst", "warm burst")))
+        + f"; demo cold {dstats['cold']} coalesced {dstats['coalesced']} "
+        f"warm {dstats['warm']}")
+    log(f"phase 16 wall {time.perf_counter() - t_phase:.3f} s")
     return launches
 
 

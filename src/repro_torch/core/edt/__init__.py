@@ -5,10 +5,18 @@ pool, the six synchronization models on the instrumented simulator, their
 Table-2 overhead atlas, the threaded autodec runtime and the
 generated-code emitters — and the counted-sync engines on the card (the
 device and fused sweeps, the distributed rank engine).
+
+Execution knobs go through :class:`ExecutionConfig`/:class:`Session`;
+the per-call ``shards=``/``parallel=``/``pool=``/``faults=``/``recovery=``
+kwargs are deprecated shims.  A session's :class:`GraphCache` answers
+repeated sizes warm, and :class:`ScheduleService` serves it to
+concurrent clients.
 """
 from .atlas import (ATLAS_COUNTERS, AtlasWorkload, Instance, WORKLOADS,
                     atlas_crossover, atlas_sweep, build_instances, fit_class,
                     fit_rows, growth_rows, measure, reference_curves)
+from .cache import GraphCache, graph_cache_info
+from .config import CachePolicy, ExecutionConfig, Session
 from .device import (DeviceCounters, DeviceExecutor, DeviceGraph, DeviceRun,
                      DeviceSchedule, decrement_reference, pack_graph,
                      pack_schedule, wavefront_step, wavefront_step_torch)
@@ -26,6 +34,7 @@ from .recovery import (FailureReport, ResilientRun, RetryPolicy,
                        ScheduleValidationError, ShardRecoveryError,
                        StallError, StallReport, TaskGroupError, Watchdog,
                        poisoned_cone, simulate_indexed_resilient)
+from .service import ScheduleService
 from .shard import ShardPlan, ShardSpec, plan_shards, scan_sharded
 from .syncmodels import (MODELS, RunResult, run_autodec, run_autodec_nosrc,
                          run_counted, run_model, run_prescribed, run_tags1,
@@ -41,6 +50,8 @@ from .wavefront import (IndexedSchedule, WavefrontSchedule, levels_from_array,
 __all__ = [
     "PolyhedralProgram", "Statement", "Dependence", "TiledTaskGraph",
     "MaterializedGraph", "IndexedGraph", "TaskId",
+    "ExecutionConfig", "CachePolicy", "Session",
+    "GraphCache", "graph_cache_info", "ScheduleService",
     "ShardSpec", "ShardPlan", "plan_shards", "scan_sharded",
     "DeviceExecutor", "DeviceRun", "DeviceCounters", "DeviceGraph",
     "DeviceSchedule", "pack_graph", "pack_schedule",

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ...compat import default_device
+from .config import UNSET, resolve_execution
 from .faults import DROPPED_DECREMENT
 from .recovery import ScheduleValidationError, StallError, StallReport
 from .taskgraph import IndexedGraph, TiledTaskGraph
@@ -516,17 +517,22 @@ class DeviceExecutor:
     """Counted-sync execution of an index graph on the card.
 
     Construct from a :class:`TiledTaskGraph` (``params`` required;
-    ``shards=``/``parallel=``/``pool=`` and ``faults=`` drive its
-    generation as in :meth:`TiledTaskGraph.index_graph`) or directly from
-    an :class:`IndexedGraph`.  With ``schedule=`` (an :class:`IndexedSchedule`,
-    e.g. from ``synthesize_indexed``) the O(V+E) replay sweep runs and
-    *validates* the schedule against the counters; without it the discover
-    sweep derives the frontiers on the device through :func:`wavefront_step`.
+    ``config=``/``session=`` drive the generation scans — shard fan-out,
+    pool, recovery; a session serves the graph from its cache) or directly
+    from an :class:`IndexedGraph`.  The per-call
+    ``shards=``/``parallel=``/``pool=``/``faults=`` kwargs are the
+    deprecated spelling of the same config; ``config.faults`` (a
+    :class:`~.faults.FaultPlan`) arms dropped decrements, and with a
+    :class:`TiledTaskGraph` also the shard faults of its generation scans.
+    With ``schedule=`` (an :class:`IndexedSchedule`, e.g. from
+    ``synthesize_indexed``) the O(V+E) replay sweep runs and *validates*
+    the schedule against the counters; without it the discover sweep
+    derives the frontiers on the device through :func:`wavefront_step`.
     ``packed=(DeviceGraph, DeviceSchedule | None)`` skips the host-side
-    packing.  ``faults=`` (a :class:`~.faults.FaultPlan`) arms dropped
-    decrements, and with a :class:`TiledTaskGraph` also the shard faults
-    of its generation scans.  ``device`` defaults to CUDA and raises where
-    there is none; pass ``device="cpu"`` for the plain torch versions.
+    packing — the graph cache hands its stored columns through here, so a
+    warm executor build packs nothing.  ``device`` defaults to CUDA and
+    raises where there is none; pass ``device="cpu"`` for the plain torch
+    versions.
 
     ``run()`` returns a :class:`DeviceRun` whose ``levels`` are
     byte-identical to ``synthesize_indexed``'s for the same graph.
@@ -535,19 +541,24 @@ class DeviceExecutor:
     def __init__(self, graph: Union[TiledTaskGraph, IndexedGraph],
                  params: Optional[dict] = None, *,
                  schedule: Optional[IndexedSchedule] = None,
-                 shards: Optional[int] = None, parallel: bool = False,
-                 pool=None, faults=None, packed=None, device=None):
+                 shards=UNSET, parallel=UNSET, pool=UNSET, faults=UNSET,
+                 config=None, session=None, packed=None, device=None):
+        cfg, sess = resolve_execution(
+            config, session, stacklevel=3,
+            legacy=dict(shards=shards, parallel=parallel, pool=pool,
+                        faults=faults))
         self.device = default_device(device)
         if isinstance(graph, TiledTaskGraph):
             if params is None:
                 raise TypeError("params required with a TiledTaskGraph")
-            ig = graph.index_graph(params, shards, parallel, pool, faults)
+            ig = (sess.index_graph(graph, params) if sess is not None
+                  else graph._index_graph_cfg(params, cfg))
         else:
             ig = graph
         if packed is not None and schedule is not None:
             raise TypeError("pass schedule= or packed=, not both")
         self.ig = ig
-        self.faults = faults
+        self.faults = cfg.faults
         if packed is not None:
             self.dg, self.ds = packed
         else:

@@ -66,10 +66,10 @@ import numpy as np
 import torch
 
 from ...compat import default_device
+from .config import resolve_execution
 from .device import upload, wavefront_step
 from .faults import MESSAGE_LOSS, RANK_CRASH, FaultPlan, InjectedRankCrash
-from .recovery import (FailureReport, RetryPolicy, StallError, StallReport,
-                       Watchdog)
+from .recovery import FailureReport, StallError, StallReport, Watchdog
 from .taskgraph import IndexedGraph, TiledTaskGraph
 from .wavefront import levels_from_array
 
@@ -672,30 +672,32 @@ def run_distributed(graph: Union[TiledTaskGraph, IndexedGraph],
                     ranks: int = 2,
                     engine: str = "numpy",
                     transport: Optional[str] = None,
-                    faults: Optional[FaultPlan] = None,
-                    recovery: Optional[RetryPolicy] = None,
+                    config=None, session=None,
                     device=None,
                     start_method: Optional[str] = None,
                     timeout: Optional[float] = None) -> DistributedRun:
     """Execute the counted-sync model across ``ranks`` task-range owners.
 
-    Accepts a :class:`TiledTaskGraph` + ``params`` (generated in process)
-    or a pre-built :class:`IndexedGraph`.  ``transport`` defaults to
-    ``"processes"`` for the NumPy engine and ``"inline"`` for the device
-    engine (which is level-synchronous and therefore inline-only).
-    ``device`` is where the device engine keeps its counters: CUDA unless
-    the caller passes ``device="cpu"`` (the NumPy engine runs on the host
-    and ignores it).  ``faults`` arms ``RANK_CRASH``/``MESSAGE_LOSS``
-    injection; ``recovery`` (a :class:`RetryPolicy`) retries failed
-    attempts with backoff — attempts are pure, so a recovered run is
-    byte-identical to a fault-free one.  ``timeout`` (or
-    ``recovery.timeout``) bounds how long a rank waits on an empty inbox
-    before reporting a stall.
+    Accepts a :class:`TiledTaskGraph` + ``params`` (generation runs under
+    ``config=``/``session=`` exactly like :class:`~.device.DeviceExecutor`
+    — a session serves the index graph from its cache) or a pre-built
+    :class:`IndexedGraph`.  ``transport`` defaults to ``"processes"`` for
+    the NumPy engine and ``"inline"`` for the device engine (which is
+    level-synchronous and therefore inline-only).  ``device`` is where the
+    device engine keeps its counters: CUDA unless the caller passes
+    ``device="cpu"`` (the NumPy engine runs on the host and ignores it).
+    ``config.faults`` arms ``RANK_CRASH``/``MESSAGE_LOSS`` injection;
+    ``config.recovery`` (a :class:`RetryPolicy`) retries failed attempts
+    with backoff — attempts are pure, so a recovered run is byte-identical
+    to a fault-free one.  ``timeout`` (or ``recovery.timeout``) bounds how
+    long a rank waits on an empty inbox before reporting a stall.
     """
+    cfg, sess = resolve_execution(config, session, stacklevel=3)
     if isinstance(graph, TiledTaskGraph):
         if params is None:
             raise TypeError("params required with a TiledTaskGraph")
-        ig = graph.index_graph(params)
+        ig = (sess.index_graph(graph, params) if sess is not None
+              else graph._index_graph_cfg(params, cfg))
     else:
         ig = graph
     if transport is None:
@@ -709,6 +711,7 @@ def run_distributed(graph: Union[TiledTaskGraph, IndexedGraph],
             "process boundary); use engine='numpy' across processes")
     if engine == "device":
         device = default_device(device)
+    faults, recovery = cfg.faults, cfg.recovery
     if timeout is None:
         timeout = (recovery.timeout if recovery is not None
                    and recovery.timeout is not None

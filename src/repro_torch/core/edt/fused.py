@@ -55,6 +55,7 @@ import torch
 
 from ...compat import default_device
 from ...kernels.stencils import SPECS, StencilSpec, default_state
+from .config import resolve_execution
 from .device import (DeviceCounters, discover_result, discover_sweep,
                      counter_init, pack_graph, pack_schedule, replay_result,
                      replay_sweep, upload)
@@ -224,8 +225,12 @@ class FusedExecutor:
     """End-to-end device-resident stencil execution of an EDT graph.
 
     Construct like :class:`~repro_torch.core.edt.device.DeviceExecutor` —
-    from a :class:`TiledTaskGraph` (``params`` required) or an
-    :class:`IndexedGraph` (then ``tile=`` names the tile sizes).  ``body``
+    from a :class:`TiledTaskGraph` (``params`` required; ``config=``/
+    ``session=`` drive its generation, sharded scans included, and a
+    session serves the graph from its cache) or an
+    :class:`IndexedGraph` (then ``tile=`` names the tile sizes).
+    ``config.faults`` (a :class:`~.faults.FaultPlan`) arms dropped
+    decrements.  ``body``
     picks the :class:`~repro_torch.kernels.stencils.StencilSpec` (a name
     from ``SPECS`` or a spec object); with a ``TiledTaskGraph`` it defaults
     to the program's registered name.  ``schedule=`` selects the O(V+E)
@@ -250,12 +255,14 @@ class FusedExecutor:
                  dtype=None,
                  tile: Optional[tuple] = None,
                  validate: bool = True,
-                 faults=None, packed=None, device=None):
+                 config=None, session=None, packed=None, device=None):
+        cfg, sess = resolve_execution(config, session, stacklevel=3)
         self.device = default_device(device)
         if isinstance(graph, TiledTaskGraph):
             if params is None:
                 raise TypeError("params required with a TiledTaskGraph")
-            ig = graph.index_graph(params)
+            ig = (sess.index_graph(graph, params) if sess is not None
+                  else graph._index_graph_cfg(params, cfg))
             if tile is None:
                 tile = graph_tile(graph)
             if body is None:
@@ -296,7 +303,7 @@ class FusedExecutor:
         if 2 * self.size + 2 >= np.iinfo(np.int32).max:
             raise ValueError(f"grid too large for int32 site indexing: "
                              f"{self.size} sites")
-        self.faults = faults
+        self.faults = cfg.faults
         self.validate = bool(validate)
         if packed is not None and schedule is not None:
             raise TypeError("pass schedule= or packed=, not both")

@@ -32,6 +32,7 @@ from ..poly import (CountingFunction, LoopNest, Polyhedron, Tiling,
                     make_counting_function, project_onto, tile_dependence,
                     tile_domain)
 from ..poly.scanning import _row_ints
+from .config import UNSET, resolve_execution
 
 TaskId = tuple[str, tuple[int, ...]]  # (statement name, tile coords)
 
@@ -252,6 +253,7 @@ class TiledTaskGraph:
         # parent-side restricted nests for sharded block counting
         # (("diag", dep index) -> sharded self-pair polyhedron; see .shard)
         self._shard_nests: dict = {}
+        self._fingerprint: Optional[str] = None
 
     # ------------------------------------------------------------- tasks
     def tasks(self, params: dict[str, int]) -> Iterator[TaskId]:
@@ -333,20 +335,30 @@ class TiledTaskGraph:
                             for n, projs in out.items()}
         return out
 
-    def roots(self, params: dict[str, int], shards: Optional[int] = None,
-              parallel: bool = False, pool=None, faults=None,
-              recovery=None) -> Iterator[TaskId]:
+    def roots(self, params: dict[str, int], shards=UNSET, parallel=UNSET,
+              pool=UNSET, faults=UNSET, recovery=UNSET, *,
+              config=None, session=None) -> Iterator[TaskId]:
         """Tasks with no predecessors (the master's scan, made O(1)-startup by
         preschedule in the autodec model).
 
-        The generation knobs are those of :meth:`index_graph`.  Sharded
-        runs derive the root set from the merged index graph (``pred_n ==
-        0`` per statement block) — same tasks, same order as the
-        in-process scans — and ``faults``/``recovery`` reach those scans.
+        Execution knobs arrive via ``config=`` (an
+        :class:`~.config.ExecutionConfig`) or ``session=``; the per-call
+        kwargs are a deprecated spelling of the same config.  Sharded runs
+        derive the root set from the merged index graph (``pred_n == 0``
+        per statement block) — same tasks, same order as the in-process
+        scans — and ``faults``/``recovery`` reach those scans.
         """
-        if self._resolve_shards(shards, parallel) > 1:
-            return self._roots_indexed(self.index_graph(
-                params, shards, parallel, pool, faults, recovery))
+        cfg, sess = resolve_execution(
+            config, session, stacklevel=3,
+            legacy=dict(shards=shards, parallel=parallel, pool=pool,
+                        faults=faults, recovery=recovery))
+        if sess is not None:
+            return sess.roots(self, params)
+        return self._roots_cfg(params, cfg)
+
+    def _roots_cfg(self, params: dict[str, int], cfg) -> Iterator[TaskId]:
+        if cfg.resolve_shards() > 1:
+            return self._roots_indexed(self._index_graph_cfg(params, cfg))
         pv = self._pv(params)
         if self.backend == "numpy":
             return self._roots_numpy(pv)
@@ -564,10 +576,9 @@ class TiledTaskGraph:
         return scan_sharded(self, params, shards, pool=pool,
                             faults=faults, recovery=recovery)
 
-    def index_graph(self, params: dict[str, int],
-                    shards: Optional[int] = None, parallel: bool = False,
-                    pool=None, faults=None,
-                    recovery=None) -> "IndexedGraph":
+    def index_graph(self, params: dict[str, int], shards=UNSET,
+                    parallel=UNSET, pool=UNSET, faults=UNSET, recovery=UNSET,
+                    *, config=None, session=None) -> "IndexedGraph":
         """The whole task graph as flat index arrays (no per-task tuples).
 
         The numpy backend's native graph product: tasks are global integer
@@ -577,22 +588,46 @@ class TiledTaskGraph:
         array output: TaskId labels are derived lazily on access, so
         generation itself never touches per-task Python objects.
 
-        ``shards`` is the generation fan-out: above 1 the scans run on a
-        process pool (:mod:`.shard`) and their blocks merge byte-identical
-        to the in-process scans; ``parallel=True`` without ``shards`` means
-        one shard per core.  ``pool`` reuses a caller's
-        ``ProcessPoolExecutor`` (never rebuilt: a broken caller-owned pool
-        raises :class:`~.recovery.ShardRecoveryError`); ``faults`` (a
-        :class:`~.faults.FaultPlan`) and ``recovery`` (a
+        Execution knobs arrive via ``config=`` (an
+        :class:`~.config.ExecutionConfig`) or ``session=`` (cached by
+        ``(fingerprint, params)`` in the session's
+        :class:`~.cache.GraphCache`).  ``config.shards`` is the generation
+        fan-out: above 1 the scans run on a process pool (:mod:`.shard`)
+        and their blocks merge byte-identical to the in-process scans;
+        ``parallel=True`` without ``shards`` means one shard per core.
+        ``config.pool`` reuses a caller's ``ProcessPoolExecutor`` (never
+        rebuilt: a broken caller-owned pool raises
+        :class:`~.recovery.ShardRecoveryError`); ``config.faults`` (a
+        :class:`~.faults.FaultPlan`) and ``config.recovery`` (a
         :class:`~.recovery.RetryPolicy`) arm injection and retry in the
-        pool rounds.  In process, ``pool``/``faults``/``recovery`` have
-        nothing to act on.
+        pool rounds.  In process, pool, faults and recovery have nothing
+        to act on.  The per-call ``shards=``/``parallel=``/``pool=``/
+        ``faults=``/``recovery=`` kwargs are the deprecated spelling of the
+        same config.
         """
-        n_shards = self._resolve_shards(shards, parallel)
-        scans = (self._sharded_scans(params, n_shards, pool=pool,
-                                     faults=faults, recovery=recovery)
-                 if n_shards > 1 else None)
+        cfg, sess = resolve_execution(
+            config, session, stacklevel=3,
+            legacy=dict(shards=shards, parallel=parallel, pool=pool,
+                        faults=faults, recovery=recovery))
+        if sess is not None:
+            return sess.index_graph(self, params)
+        return self._index_graph_cfg(params, cfg)
+
+    def _index_graph_cfg(self, params: dict[str, int], cfg,
+                         scans=None) -> "IndexedGraph":
+        """``index_graph`` body under a resolved config.
+
+        ``scans`` injects pre-merged scan products (a
+        :class:`~.shard.ShardedScans`) in place of both the in-process and
+        the sharded scans — the graph cache's incremental
+        re-materialization hands stitched blocks through here.
+        """
         pv = self._pv(params)
+        n_shards = cfg.resolve_shards()
+        if scans is None and n_shards > 1:
+            scans = self._sharded_scans(params, n_shards, pool=cfg.pool,
+                                        faults=cfg.faults,
+                                        recovery=cfg.recovery)
         info = self._stmt_index(
             pv, with_tasks=False,
             tiles=scans.tiles if scans is not None else None)
@@ -620,10 +655,9 @@ class TiledTaskGraph:
             pred_n=np.bincount(edge_tgt, minlength=n), dep_spans=spans)
 
     # ------------------------------------------------------------ materialize
-    def materialize(self, params: dict[str, int],
-                    shards: Optional[int] = None, parallel: bool = False,
-                    pool=None, faults=None,
-                    recovery=None) -> "MaterializedGraph":
+    def materialize(self, params: dict[str, int], shards=UNSET,
+                    parallel=UNSET, pool=UNSET, faults=UNSET, recovery=UNSET,
+                    *, config=None, session=None) -> "MaterializedGraph":
         """Explicit adjacency (for tests / the prescribed model / wavefronts).
 
         Batched: the parameter vector, compiled scan functions, and
@@ -633,19 +667,32 @@ class TiledTaskGraph:
         task list, per-task successor order, and pred counts are identical
         to the per-task path.  The ``numpy`` backend goes further: each
         dependence's edge list is one vectorized scan of the joint Δ_T
-        polyhedron (see ``_materialize_numpy``).  The generation knobs are
-        those of :meth:`index_graph`: sharded runs scan on a process pool
-        and merge the blocks — identical graph, any backend.  Callers that
-        only need arrays should prefer :meth:`index_graph`, which never
-        builds the per-task dicts.
+        polyhedron (see ``_materialize_numpy``).
+
+        Execution knobs arrive via ``config=``/``session=``; the per-call
+        kwargs are the deprecated spelling.  Sharded configs run the scans
+        on a process pool (:mod:`.shard`) and merge the blocks — identical
+        graph, any backend.  Callers that only need arrays should prefer
+        :meth:`index_graph`, which never builds the per-task dicts.
         """
+        cfg, sess = resolve_execution(
+            config, session, stacklevel=3,
+            legacy=dict(shards=shards, parallel=parallel, pool=pool,
+                        faults=faults, recovery=recovery))
+        if sess is not None:
+            return sess.materialize(self, params)
+        return self._materialize_cfg(params, cfg)
+
+    def _materialize_cfg(self, params: dict[str, int],
+                         cfg) -> "MaterializedGraph":
         pv = self._pv(params)
-        n_shards = self._resolve_shards(shards, parallel)
+        n_shards = cfg.resolve_shards()
         if n_shards > 1:
             return self._materialize_numpy(
-                pv, scans=self._sharded_scans(params, n_shards, pool=pool,
-                                              faults=faults,
-                                              recovery=recovery))
+                pv, scans=self._sharded_scans(params, n_shards,
+                                              pool=cfg.pool,
+                                              faults=cfg.faults,
+                                              recovery=cfg.recovery))
         if self.backend == "numpy":
             return self._materialize_numpy(pv)
         tasks: list[TaskId] = []
@@ -674,6 +721,50 @@ class TiledTaskGraph:
 
     def _pv(self, params: dict[str, int]) -> list[int]:
         return [params[n] for n in self.param_names]
+
+    # ------------------------------------------------------------- identity
+    def fingerprint(self) -> str:
+        """Canonical parametric-program fingerprint (sha256 hex digest).
+
+        Hashes the canonicalized tile domains and effective inter-tile
+        dependence polyhedra (plus tilings, tiling method, and parameter
+        list) — everything that determines the generated graph and nothing
+        that doesn't.  The scanning ``backend`` is deliberately excluded:
+        all backends produce byte-identical graphs, so cache entries keyed
+        by this fingerprint are shared across backends and across graph
+        instances rebuilt from the same program.
+        """
+        if self._fingerprint is None:
+            import hashlib
+            parts = [repr(self.param_names), self.method]
+            for name in self.program.statements:
+                p = self.tile_domains[name].canonical()
+                parts.append(repr((name, self.tilings[name].sizes,
+                                   p.ineqs, p.eqs)))
+            for td in self.tiled_deps:
+                p = td.delta_t.canonical()
+                parts.append(repr((td.dep.src, td.dep.tgt, p.ineqs, p.eqs)))
+            self._fingerprint = hashlib.sha256(
+                "\n".join(parts).encode()).hexdigest()
+        return self._fingerprint
+
+    def scan_units(self) -> list[tuple[str, object, LoopNest]]:
+        """Every scan unit behind ``index_graph``: ``(kind, key, nest)``.
+
+        Statement tile domains come first (``kind = shard.TILES``, keyed by
+        statement name), then the joint dependence polyhedra
+        (``kind = shard.EDGES``, keyed by ``tiled_deps`` index) — the same
+        unit decomposition the shard planner partitions, reused by the
+        graph cache to decide per-unit outer-param reuse
+        (:meth:`LoopNest.outer_only_params`).
+        """
+        from .shard import EDGES, TILES  # local import: avoid cycle
+        units: list[tuple[str, object, LoopNest]] = []
+        for name in self.program.statements:
+            units.append((TILES, name, self.tile_nests[name]))
+        for td in self.tiled_deps:
+            units.append((EDGES, td.idx, self._joint_nest(td)))
+        return units
 
 
 @dataclass

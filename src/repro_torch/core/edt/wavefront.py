@@ -27,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 
+from .config import UNSET, resolve_execution
 from .executor import Sim
 from .taskgraph import IndexedGraph, TaskId, TiledTaskGraph
 
@@ -77,22 +78,28 @@ class IndexedSchedule:
                 "avg_width": n / max(1, self.depth)}
 
 
-def synthesize(graph: TiledTaskGraph, params: dict, shards=None,
-               parallel=False, pool=None, faults=None,
-               recovery=None) -> WavefrontSchedule:
+def synthesize(graph: TiledTaskGraph, params: dict, shards=UNSET,
+               parallel=UNSET, pool=UNSET, faults=UNSET, recovery=UNSET, *,
+               config=None, session=None) -> WavefrontSchedule:
     """Longest-path leveling of the tile graph.
 
     ``numpy``-backend graphs level from flat index arrays (whole wavefronts
     per step); the scalar path materializes and walks the dict graph.  Both
-    produce identical schedules.  The generation knobs are those of
-    :meth:`TiledTaskGraph.index_graph`: sharded runs fan the underlying
-    scans across processes (any backend) — the schedule is unchanged, only
-    generation parallelizes.
+    produce identical schedules.  Execution knobs arrive via
+    ``config=``/``session=`` (the per-call kwargs are the deprecated
+    spelling); sharded configs fan the underlying scans across processes
+    (any backend) — the schedule is unchanged, only generation
+    parallelizes.
     """
-    if graph._resolve_shards(shards, parallel) > 1 or graph.backend == "numpy":
-        return _synthesize_from_ig(graph.index_graph(
-            params, shards, parallel, pool, faults, recovery))
-    g = graph.materialize(params)     # in process: the knobs act on nothing
+    cfg, sess = resolve_execution(
+        config, session, stacklevel=3,
+        legacy=dict(shards=shards, parallel=parallel, pool=pool,
+                    faults=faults, recovery=recovery))
+    if sess is not None:
+        return sess.synthesize(graph, params)
+    if cfg.resolve_shards() > 1 or graph.backend == "numpy":
+        return _synthesize_from_ig(graph._index_graph_cfg(params, cfg))
+    g = graph._materialize_cfg(params, cfg)
     indeg = dict(g.pred_n)
     level = {t: 0 for t in g.tasks}
     cur = sorted(t for t in g.tasks if indeg[t] == 0)
@@ -196,18 +203,26 @@ def schedule_from_graph(ig: IndexedGraph) -> IndexedSchedule:
     return IndexedSchedule(levels=levels_from_array(level), level_of=level)
 
 
-def synthesize_indexed(graph: TiledTaskGraph, params: dict, shards=None,
-                       parallel=False, pool=None, faults=None,
-                       recovery=None) -> tuple[IndexedGraph, IndexedSchedule]:
+def synthesize_indexed(graph: TiledTaskGraph, params: dict, shards=UNSET,
+                       parallel=UNSET, pool=UNSET, faults=UNSET,
+                       recovery=UNSET, *, config=None,
+                       session=None) -> tuple[IndexedGraph, IndexedSchedule]:
     """Level the graph without ever leaving index space.
 
     The sharded/million-task path: the (optionally sharded) index graph is
     leveled by :func:`_level_array` and bucketed with one stable argsort —
     no TaskId tuples, no per-task dicts.  Returns the graph too, since
-    executors need the id -> label blocks only if they label at all.  The
-    generation knobs are those of :meth:`TiledTaskGraph.index_graph`.
+    executors need the id -> label blocks only if they label at all.
+    Knobs via ``config=``/``session=`` (session calls are cached — warm
+    hits return the stored arrays); the per-call kwargs are deprecated.
     """
-    ig = graph.index_graph(params, shards, parallel, pool, faults, recovery)
+    cfg, sess = resolve_execution(
+        config, session, stacklevel=3,
+        legacy=dict(shards=shards, parallel=parallel, pool=pool,
+                    faults=faults, recovery=recovery))
+    if sess is not None:
+        return sess.schedule(graph, params)
+    ig = graph._index_graph_cfg(params, cfg)
     return ig, schedule_from_graph(ig)
 
 

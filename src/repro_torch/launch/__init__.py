@@ -1,1 +1,2 @@
-"""Entry points of the port: step functions and the serving loop."""
+"""Entry points of the port: step functions, the serving loop and the
+schedule service."""

@@ -167,7 +167,8 @@ def test_dropped_decrement_stalls_like_reference():
     with pytest.raises(ref.StallError) as want:
         ref.DeviceExecutor(rig, config=ref.ExecutionConfig(faults=rplan)).run()
     with pytest.raises(edt.StallError) as got:
-        edt.DeviceExecutor(pig, faults=pplan, device="cpu").run()
+        edt.DeviceExecutor(pig, config=edt.ExecutionConfig(faults=pplan),
+                           device="cpu").run()
     _assert_same_stall(got.value, want.value)
     assert pplan.fired == rplan.fired == [("dropped_decrement", 5, 0, None)]
 

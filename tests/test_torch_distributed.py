@@ -283,8 +283,10 @@ def test_fault_recovers_byte_identical(kind, engine):
     want = _ref_run(rig, rplan, RETRY, ranks=2, engine=engine,
                     transport="inline")
     got = edt.run_distributed(pig, ranks=2, engine=engine,
-                              transport="inline", faults=pplan,
-                              recovery=PORT_RETRY, device="cpu")
+                              transport="inline",
+                              config=edt.ExecutionConfig(
+                                  faults=pplan, recovery=PORT_RETRY),
+                              device="cpu")
     assert got.attempts == (2 if kind == faults.RANK_CRASH else 1)
     assert_runs_identical(got, want)
     assert pplan.fired == rplan.fired and pplan.fired[0][0] == kind
@@ -311,7 +313,8 @@ def test_message_loss_without_policy_stalls_like_reference(engine):
         _ref_run(rig, rplan, ranks=2, engine=engine, transport="inline")
     with pytest.raises(edt.StallError) as got:
         edt.run_distributed(pig, ranks=2, engine=engine, transport="inline",
-                            faults=pplan, device="cpu")
+                            config=edt.ExecutionConfig(faults=pplan),
+                            device="cpu")
     _assert_same_stall(got.value, want.value)
     assert pplan.fired == rplan.fired
 
@@ -322,9 +325,10 @@ def test_crash_beyond_retry_budget_raises():
                                            times=5),))
     assert not plan.recoverable(PORT_RETRY.max_retries)
     with pytest.raises(edt.InjectedRankCrash, match="rank 0, attempt 1"):
-        edt.run_distributed(pig, ranks=2, engine="device", faults=plan,
-                            recovery=recovery.RetryPolicy(
-                                max_retries=1, base_delay=0.001),
+        edt.run_distributed(pig, ranks=2, engine="device",
+                            config=edt.ExecutionConfig(
+                                faults=plan, recovery=recovery.RetryPolicy(
+                                    max_retries=1, base_delay=0.001)),
                             device="cpu")
     assert [f[2] for f in plan.fired] == [0, 1]
 
@@ -340,8 +344,10 @@ def test_process_transport_recovers_soft_crash():
     pplan = edt.FaultPlan(faults=(edt.Fault(**kw),))
     want = _ref_run(rig, rplan, RETRY, ranks=2, transport="processes",
                     timeout=15.0)
-    got = edt.run_distributed(pig, ranks=2, faults=pplan,
-                              recovery=PORT_RETRY, timeout=15.0)
+    got = edt.run_distributed(pig, ranks=2,
+                              config=edt.ExecutionConfig(
+                                  faults=pplan, recovery=PORT_RETRY),
+                              timeout=15.0)
     assert got.transport == "processes" and got.attempts == 1
     assert _same(got.level_of, want.level_of)
     assert _same(got.exec_order, want.exec_order)
@@ -357,7 +363,8 @@ def test_hard_crash_without_policy_reports_like_reference():
                  transport="processes", timeout=15.0)
     with pytest.raises(edt.RankFailureError) as got:
         edt.run_distributed(pig, ranks=2, transport="processes",
-                            faults=edt.FaultPlan(faults=(edt.Fault(**kw),)),
+                            config=edt.ExecutionConfig(faults=edt.FaultPlan(
+                                faults=(edt.Fault(**kw),))),
                             timeout=15.0)
     g, w = got.value.report, want.value.report
     assert isinstance(g, edt.FailureReport)

@@ -20,8 +20,9 @@ from repro.core.edt import synthesize_indexed as ref_synthesize  # noqa: E402
 from repro.core.poly import Tiling as RefTiling  # noqa: E402
 
 from repro_torch.core import programs  # noqa: E402
-from repro_torch.core.edt import (TiledTaskGraph,  # noqa: E402
-                                  schedule_from_graph, synthesize_indexed)
+from repro_torch.core.edt import (ExecutionConfig,  # noqa: E402
+                                  TiledTaskGraph, schedule_from_graph,
+                                  synthesize_indexed)
 from repro_torch.core.poly import Tiling  # noqa: E402
 
 #: the four stencil bodies at the fused suite's sizes
@@ -91,18 +92,20 @@ def test_sharded_generation_is_not_ported():
     ref, port = _graphs("trisolv", (2, 2))
     params = {"N": 9}
     cfg = RefExecutionConfig(shards=2)
+    pcfg = ExecutionConfig(shards=2)
     rig, pig = ref.index_graph(params, config=cfg), port.index_graph(
-        params, shards=2)
+        params, config=pcfg)
     for field in ("edge_src", "edge_tgt", "pred_n"):
         assert _same(getattr(pig, field), getattr(rig, field)), field
     rg, pg = ref.materialize(params, config=cfg), port.materialize(
-        params, shards=2)
+        params, config=pcfg)
     assert (pg.tasks, pg.succ, pg.pred_n) == (rg.tasks, rg.succ, rg.pred_n)
-    assert list(port.roots(params, shards=2)) == \
+    assert list(port.roots(params, config=pcfg)) == \
         list(ref.roots(params, config=cfg))
     _, rsched = ref_synthesize(ref, params,
                                config=RefExecutionConfig(shards=4))
-    _, psched = synthesize_indexed(port, params, shards=4)
+    _, psched = synthesize_indexed(port, params,
+                                   config=ExecutionConfig(shards=4))
     assert _same(psched.level_of, rsched.level_of)
-    assert port.index_graph(params, shards=1).n == \
+    assert port.index_graph(params, config=ExecutionConfig(shards=1)).n == \
         port.index_graph(params).n

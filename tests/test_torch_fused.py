@@ -175,7 +175,9 @@ def test_dropped_decrement_stalls_fused_discover_like_reference():
         ref.FusedExecutor(rg, params,
                           config=ref.ExecutionConfig(faults=rplan)).run()
     with pytest.raises(edt.StallError) as got:
-        edt.FusedExecutor(pg, params, faults=pplan, device="cpu").run()
+        edt.FusedExecutor(pg, params,
+                          config=edt.ExecutionConfig(faults=pplan),
+                          device="cpu").run()
     assert got.value.report.context == "fused-discover"
     assert str(got.value) == str(want.value)
     assert got.value.report.to_json() == want.value.report.to_json()

@@ -70,6 +70,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.kernels.ssd, repro_torch.models.hybrid\n"
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve, repro_torch.launch.steps\n"
+        "import repro_torch.launch.edt_serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -100,6 +101,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
         edt.FusedExecutor(g, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         edt.run_distributed(ig, engine="device")
+    with edt.Session(edt.ExecutionConfig(backend="numpy")) as session:
+        for replay in (True, False):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                session.executor(g, params, replay=replay)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            session.fused_executor(g, params)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            session.distributed(g, params, engine="device")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         handwritten_solve(SPECS["jacobi2d"], np.zeros((6, 6), np.float32), 1)
     dg = edt.pack_graph(ig)

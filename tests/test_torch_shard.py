@@ -10,7 +10,7 @@ Both packages build the same programs' tile graphs and must agree:
   to pickle when ``/dev/shm`` has too little room;
 * the graph products through the entry points (``index_graph``,
   ``materialize``, ``roots``, ``synthesize_indexed``, ``DeviceExecutor``
-  on ``device="cpu"``) at ``shards=2``;
+  on ``device="cpu"``) at ``config=ExecutionConfig(shards=2)``;
 * the faults: one recoverable fault of each kind recovered byte for byte
   with the plan's record of what fired, the unrecoverable ones with the
   reference's report, a hard crash in a caller's pool refused, and
@@ -206,17 +206,18 @@ def test_graph_entry_points_sharded_match_reference(name, pool,
     rg, pg, params = _graphs(name)
     cfg = ref.ExecutionConfig(shards=2, pool=pool)
     rig, rsched = ref.synthesize_indexed(rg, params, config=cfg)
-    ig, sched = edt.synthesize_indexed(pg, params, shards=2, pool=pool)
+    pcfg = edt.ExecutionConfig(shards=2, pool=pool)
+    ig, sched = edt.synthesize_indexed(pg, params, config=pcfg)
     _same_graph(ig, rig)
     _same_graph(ig, _oracle(name)[0])
     assert _same(sched.level_of, rsched.level_of)
     assert all(_same(a, b) for a, b in zip(sched.levels, rsched.levels))
-    _same_graph(pg.index_graph(params, shards=2, pool=pool),
+    _same_graph(pg.index_graph(params, config=pcfg),
                 rg.index_graph(params, config=cfg))
-    m, rm = pg.materialize(params, 2, pool=pool), rg.materialize(
+    m, rm = pg.materialize(params, config=pcfg), rg.materialize(
         params, config=cfg)
     assert (m.tasks, m.succ, m.pred_n) == (rm.tasks, rm.succ, rm.pred_n)
-    assert list(pg.roots(params, shards=2, pool=pool)) == \
+    assert list(pg.roots(params, config=pcfg)) == \
         list(rg.roots(params, config=cfg)) == list(rg.roots(params))
 
 
@@ -229,18 +230,22 @@ def test_resolve_shards_matches_reference(shards, parallel):
 
 
 def test_device_executor_sharded_levels(pool, segment_names):
-    """``DeviceExecutor(graph, params, shards=2)``: the discover sweep over
-    the pool-built graph levels it as the reference's schedule, and a
-    shard fault in ``faults=`` reaches the generation scans."""
+    """``DeviceExecutor(graph, params, config=ExecutionConfig(shards=2))``:
+    the discover sweep over the pool-built graph levels it as the
+    reference's schedule, and a shard fault in ``config.faults`` reaches
+    the generation scans."""
     _, pg, params = _graphs("seidel1d")
     rig, rsched = _oracle("seidel1d")
-    run = edt.DeviceExecutor(pg, params, shards=2, pool=pool,
-                             device="cpu").run()
+    run = edt.DeviceExecutor(
+        pg, params, config=edt.ExecutionConfig(shards=2, pool=pool),
+        device="cpu").run()
     assert _same(run.level_of, rsched.level_of)
     plan = faults.FaultPlan(faults=(faults.Fault(
         kind=faults.WORKER_CRASH, round=2, index=1),))
-    ex = edt.DeviceExecutor(pg, params, shards=2, pool=pool, faults=plan,
-                            device="cpu")
+    ex = edt.DeviceExecutor(
+        pg, params, config=edt.ExecutionConfig(shards=2, pool=pool,
+                                               faults=plan),
+        device="cpu")
     _same_graph(ex.ig, rig)
     assert [f[:3] for f in plan.fired] == [("shard_failure", (2, 1), 0)]
     assert _same(ex.run().level_of, rsched.level_of)
@@ -274,9 +279,9 @@ def test_recoverable_fault_is_byte_identical(kind, pool, segment_names):
     fault, policy, shared = RECOVERABLE[kind]
     rg, pg, params = _graphs("trisolv")
     plan = faults.FaultPlan(faults=(fault,))
-    ig = pg.index_graph(params, shards=2, pool=pool if shared else None,
-                        faults=plan,
-                        recovery=recovery.RetryPolicy(**policy))
+    ig = pg.index_graph(params, config=edt.ExecutionConfig(
+        shards=2, pool=pool if shared else None, faults=plan,
+        recovery=recovery.RetryPolicy(**policy)))
     _same_graph(ig, _oracle("trisolv")[0])
     assert plan.fired, "the fault never fired"
     assert (fault.round, fault.index) in {f[1] for f in plan.fired}
@@ -298,8 +303,9 @@ def test_unrecoverable_fault_reports_like_reference(fault, policy, pool,
     rg, pg, params = _graphs("trisolv")
     plan = faults.FaultPlan(faults=(fault,))
     with pytest.raises(recovery.ShardRecoveryError) as got:
-        pg.index_graph(params, shards=2, pool=pool, faults=plan,
-                       recovery=recovery.RetryPolicy(**policy))
+        pg.index_graph(params, config=edt.ExecutionConfig(
+            shards=2, pool=pool, faults=plan,
+            recovery=recovery.RetryPolicy(**policy)))
     rplan = _ref_plan(plan)
     with pytest.raises(ref.ShardRecoveryError) as want:
         rg.index_graph(params, config=ref.ExecutionConfig(
@@ -322,8 +328,9 @@ def test_hard_crash_in_caller_pool_is_refused(segment_names):
         kind=faults.WORKER_CRASH, round=0, index=0, hard=True),))
     with ProcessPoolExecutor(max_workers=2) as own:
         with pytest.raises(recovery.ShardRecoveryError) as err:
-            pg.index_graph(params, shards=2, pool=own, faults=plan,
-                           recovery=recovery.RetryPolicy(**FAST))
+            pg.index_graph(params, config=edt.ExecutionConfig(
+                shards=2, pool=own, faults=plan,
+                recovery=recovery.RetryPolicy(**FAST)))
     assert err.value.report.context == "sharded"
     assert "cannot rebuild" in err.value.report.failed[0][1]
 

@@ -162,7 +162,7 @@ def test_synthesize_refuses_sharded_generation():
     params = {"T": 4, "N": 4}
     want = ref.synthesize(rg, params,
                           config=ref.ExecutionConfig(shards=2))
-    got = edt.synthesize(pg, params, shards=2)
+    got = edt.synthesize(pg, params, config=edt.ExecutionConfig(shards=2))
     assert got.levels == want.levels and got.level_of == want.level_of
     assert got.levels == edt.synthesize(pg, params).levels
 
