@@ -9,7 +9,8 @@ on the card and fused stencil tiles, at the size of the reference's
 acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks),
 and the same graph split over ranks by the distributed engine.
 The serving path: llama3.2-1b, rwkv6-1.6b and zamba2-7b (Mamba2 + shared
-attention) at full width and depth, f32 weights drawn from a seed.
+attention) at full width and depth, f32 weights drawn from a seed.  The
+training path: llama3.2-1b at full width, all three at tiny width.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
@@ -113,7 +114,21 @@ attention) at full width and depth, f32 weights drawn from a seed.
     to phase 8's (launches counted into the kernel's record).  Last the
     CLI ``python -m repro_torch.launch.edt_serve`` at the slice size over
     stdin (a cold answer, a warm answer, a malformed request refused while
-    the server keeps serving) and its ``--demo``.
+    the server keeps serving) and its ``--demo``;
+17. the training path (``optim``, ``data``, ``checkpoint``, ``runtime``,
+    ``launch/train.py``), last, with no kernel on it (the reference trains
+    on its plain route): for llama3.2-1b, rwkv6-1.6b and zamba2-7b at the
+    reference's ``--width tiny``, 3 steps of ``make_train_step`` on the
+    card against the same steps on the CPU from the same seeded params
+    (and with ``microbatches=2``), and each family's kernel route refusing
+    grad mode on CUDA tensors with no launch; llama3.2-1b at full width
+    (f32, B=8, S=256, remat) for 20 steps of ``TrainDriver``, built as
+    ``launch.train --width full`` builds it, with its loss going down, ms a
+    step, tokens a second, peak memory, forward+backward and the AdamW
+    update timed apart, and its one 14.8 GB checkpoint's bytes, snapshot
+    and write seconds, restored bit-identical onto the card; the CLI at
+    tiny width; a restart drill (a fault before step 9 of 12, checkpoints
+    every 4) replaying step 8 with the same loss.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -1910,6 +1925,403 @@ def zamba_path(dev) -> dict:
     return {"prefill_step": step_launches, "serve": serve_launches}
 
 
+# ------------------------------------------------------ the training path
+TRAIN_FAMILIES = (LLAMA, RWKV, ZAMBA)
+TRAIN_TINY_B, TRAIN_TINY_S, TRAIN_TINY_STEPS = 4, 64, 3
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 20   # llama3.2-1b at full width
+TRAIN_SPLIT_STEPS = 3                   # forward+backward vs update, apart
+#: CUDA against the CPU at tiny width: the same f32 steps (TF32 off),
+#: summed in other orders (the card's embedding backward adds with atomics)
+TRAIN_TOL = 1e-4
+#: the AdamW state after those steps, leaf by leaf: the relative L2 gap
+#: ||card - cpu|| / ||cpu|| of each moment leaf and of each param leaf's
+#: update p - p0, by microbatches.  In the norm, as Adam's m / sqrt(v)
+#: turns the summation noise of a gradient near zero into a change of up
+#: to lr in that one element, and bf16 sums (microbatches 2) move an
+#: element by its last bit.  Measured on the H100 (PR 23): moments at most
+#: 2.6e-5 / 2.4e-3, updates 9.7e-4 / 3.0e-3 (microbatches 1 / 2); a fault
+#: in a leaf's gradient or update moves its gap to order 1
+TRAIN_STATE_RTOL = {1: {"moments": 2e-4, "updates": 1e-2},
+                    2: {"moments": 2e-2, "updates": 3e-2}}
+
+
+def tree_to(tree, dev):
+    """A copy of a dict of tensors on ``dev``."""
+    from repro_torch.tree import leaves, rebuild
+
+    return rebuild(tree, [t.detach().to(dev, copy=True) for t in leaves(tree)])
+
+
+def train_state_gap(got, want, start, rtol: dict, label: str) -> dict:
+    """The params and AdamW state ``got`` on the card against ``want`` on
+    the CPU, both reached from the params ``start``: each moment leaf and
+    each param leaf's update within ``rtol["moments"]`` and
+    ``rtol["updates"]`` in the relative L2 norm, the int32 step equal.
+    Returns the worst gap for the params and each moment field."""
+    import torch
+
+    from repro_torch.optim import _zip
+
+    (gp, gs), (wp, ws) = got, want
+    if int(gs["step"]) != int(ws["step"]):
+        raise AssertionError(f"phase 17 {label}: step {int(gs['step'])} "
+                             f"on the card, {int(ws['step'])} on the cpu")
+    worst = {}
+    for p0, gleaf, wleaf, gmv, wmv in _zip(start, gp, wp, gs["mv"],
+                                           ws["mv"]):
+        p0 = p0.double()
+        pairs = [("params", gleaf.detach().cpu().double() - p0,
+                  wleaf.detach().double() - p0)]
+        pairs += [(kind, a.detach().cpu().double(), b.detach().double())
+                  for kind, a, b in zip(gmv._fields, gmv, wmv)
+                  if b is not None]
+        for kind, a, b in pairs:
+            gap = float(torch.linalg.vector_norm(a - b))
+            norm = float(torch.linalg.vector_norm(b))
+            rel = gap / norm if norm > 0 else 0.0 if gap == 0 else np.inf
+            tol = rtol["updates" if kind == "params" else "moments"]
+            if not bool(torch.isfinite(a).all()) or not rel <= tol:
+                raise AssertionError(
+                    f"phase 17 {label}: a {kind} leaf {tuple(a.shape)} "
+                    f"differs by {rel:.3e} of its norm (rtol {tol})")
+            worst[kind] = max(worst.get(kind, 0.0), rel)
+    return {k: float(f"{v:.2e}") for k, v in worst.items()}
+
+
+def tiny_training(dev) -> None:
+    """Phase 17, tiny width: each family's reference ``--width tiny`` config,
+    3 steps of ``make_train_step`` on the card against the same steps on
+    the CPU (and with ``microbatches=2``), then the kernel routes refusing
+    grad mode on CUDA tensors."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import tiny_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.tree import leaves
+
+    cpu = torch.device("cpu")
+    # warmup 1: every step's update moves the next loss at the full lr
+    opt_cfg = AdamWConfig(lr=1e-3, warmup=1, total_steps=TRAIN_STEPS)
+    for name in TRAIN_FAMILIES:
+        cfg = tiny_config(get_config(name))
+        model = build_model(cfg)
+        seed_params = model.init(torch.Generator().manual_seed(0),
+                                 torch.float32, cpu)
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_TINY_S,
+                          global_batch=TRAIN_TINY_B)
+        worst, state_worst = {}, {}
+        for mb in (1, 2):
+            losses, finals = {}, {}
+            for key, d in (("card", dev), ("cpu", cpu)):
+                params = tree_to(seed_params, d)
+                state = init_state(opt_cfg, params)
+                step = make_train_step(model, opt_cfg, microbatches=mb)
+                src = SyntheticLM(dcfg, device=d)
+                losses[key] = [float(step(params, state, src.batch_at(i))[2])
+                               for i in range(TRAIN_TINY_STEPS)]
+                finals[key] = (params, state)
+            got, want = losses["card"], losses["cpu"]
+            if not all(np.isfinite(got)) or not np.allclose(
+                    got, want, rtol=TRAIN_TOL, atol=0):
+                raise AssertionError(f"phase 17 {name} tiny, microbatches "
+                                     f"{mb}: cuda losses {got}, cpu {want}")
+            worst[mb] = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            state_worst[mb] = train_state_gap(
+                finals["card"], finals["cpu"], seed_params,
+                TRAIN_STATE_RTOL[mb], f"{name} tiny, microbatches {mb}")
+            first = got
+        log(f"phase 17 {name} tiny (d {cfg.d_model}, {cfg.n_layers} layers, "
+            f"vocab {cfg.vocab}, B={TRAIN_TINY_B} S={TRAIN_TINY_S}, lr "
+            f"{opt_cfg.lr} warmup {opt_cfg.warmup}): {TRAIN_TINY_STEPS} "
+            f"steps cuda vs cpu, losses {first} (last run, microbatches 2), "
+            f"max rel diff {worst[1]:.2e} (microbatches 1), {worst[2]:.2e} "
+            f"(2); rtol {TRAIN_TOL}; after the steps, the worst relative "
+            f"L2 gap of a leaf's update and moments: microbatches 1 "
+            f"{state_worst[1]}, 2 {state_worst[2]} (rtol "
+            f"{TRAIN_STATE_RTOL})")
+
+        # the kernel routes refuse grad mode on CUDA tensors
+        kmodel = build_model(cfg.replace(attn_impl="cuda"))
+        params = tree_to(seed_params, dev)
+        S = 128 if name == LLAMA else 64
+        tokens = torch.randint(0, cfg.vocab, (2, S), device=dev,
+                               generator=torch.Generator(dev).manual_seed(1))
+        for p in leaves(params):
+            p.requires_grad_(True)
+        before = (flash_attention_hm.launches, wkv6.launches, ssd.launches)
+        try:
+            kmodel.loss(params, {"tokens": tokens, "labels": tokens})
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            refused = str(e).split(":")[0]
+        else:
+            raise AssertionError(f"{name}: a kernel route ran with grad on")
+        if (flash_attention_hm.launches, wkv6.launches,
+                ssd.launches) != before:
+            raise AssertionError(f"{name}: a kernel launched with grad on")
+        log(f"phase 17 {name} attn_impl=cuda with grad on: {refused} refused "
+            f"on CUDA tensors, no launch")
+
+
+@contextlib.contextmanager
+def timing_wrapped(obj, name: str, record: list):
+    """``obj.name`` wrapped to append each call's host seconds to
+    ``record`` while inside."""
+    saved = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return saved(*args, **kwargs)
+        finally:
+            record.append(time.perf_counter() - t0)
+
+    setattr(obj, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def train_profile(fn):
+    """``(wall s, device-busy s, kernels, GEMM s, top 8 kernels)`` of one
+    call under ``torch.profiler``; a GEMM is a kernel whose name holds
+    ``gemm`` (cuBLAS's and CUTLASS's names do)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us, n = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            us[e.name[:60]] += e.time_range.elapsed_us()
+            n[e.name[:60]] += 1
+    busy = sum(us.values()) / 1e6
+    gemm = sum(v for k, v in us.items() if "gemm" in k.lower()) / 1e6
+    top = [(k, round(v / 1e3, 3), n[k]) for k, v in us.most_common(8)]
+    return wall, busy, sum(n.values()), gemm, top
+
+
+def train_path(dev, card) -> None:
+    """Phase 17: the training path (``launch/train.py``, the driver, the
+    loss, AdamW, data and checkpoints).  No kernel is on it: the
+    reference trains on its plain route."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, apply_updates, init_state
+    from repro_torch.runtime import DriverConfig, TrainDriver
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    tiny_training(dev)
+
+    # ---------- llama3.2-1b at full width: what `train --width full` builds
+    cfg = get_config(LLAMA)
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+
+    def init_fn():
+        params = model.init(torch.Generator(dev).manual_seed(0),
+                            torch.float32, dev)
+        return params, init_state(opt_cfg, params)
+
+    train_step = make_train_step(model, opt_cfg)
+    step_s, kept = [], {}
+
+    def step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        kept["state"] = out
+        return out
+
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                          global_batch=TRAIN_B)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    n_params = sum(t.numel() for t in leaves(
+        model.init(torch.Generator(), torch.float32, "meta")))
+    ckpt_bytes_want = 12 * n_params          # params and two f32 moments
+    free = shutil.disk_usage(build).free
+    if free < 1.2 * ckpt_bytes_want:
+        raise AssertionError(f"phase 17: {free} bytes free under {build}, "
+                             f"the full-width checkpoint needs about "
+                             f"{ckpt_bytes_want}")
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=build, prefix="train_ckpt_") as tmp:
+        driver = TrainDriver(
+            DriverConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                         ckpt_dir=tmp), data_cfg, step, init_fn)
+        snap_s, write_s = [], []
+        t0 = time.perf_counter()
+        with timing_wrapped(checkpoint.AsyncCheckpointer, "submit", snap_s), \
+                timing_wrapped(checkpoint, "save_sync", write_s):
+            hist = driver.run()
+        t_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h.loss for h in hist]
+        if [h.step for h in hist] != list(range(TRAIN_STEPS)) or not all(
+                np.isfinite(losses)) or driver.restarts:
+            raise AssertionError(f"phase 17 {LLAMA} full: steps "
+                                 f"{[h.step for h in hist]}, losses {losses}")
+        first, last5 = losses[0], sum(losses[-5:]) / 5
+        if not last5 < first:
+            raise AssertionError(f"phase 17 {LLAMA} full: loss did not go "
+                                 f"down: {losses}")
+        if checkpoint.latest_step(tmp) != TRAIN_STEPS - 1 or len(
+                write_s) != 1 or len(snap_s) != 1:
+            raise AssertionError(f"phase 17: checkpoints {write_s}, latest "
+                                 f"{checkpoint.latest_step(tmp)}")
+        ck = Path(tmp) / f"step_{TRAIN_STEPS - 1:08d}"
+        ck_bytes = sum(f.stat().st_size for f in ck.iterdir())
+        ms = statistics.median(step_s[1:]) * 1e3
+        flop = 8 * n_params * TRAIN_B * TRAIN_S  # 6 N T, and remat's forward
+        log(f"phase 17 {LLAMA} full width ({n_params} f32 parameters, "
+            f"B={TRAIN_B} S={TRAIN_S}, remat, AdamW lr 1e-3 warmup 20): "
+            f"{TRAIN_STEPS} driver steps in {t_run:.3f} s; loss {first:.4f} "
+            f"-> {last5:.4f} (mean of the last five; each step {losses}); "
+            f"step median of steps 2-{TRAIN_STEPS} {ms:.2f} ms (first "
+            f"{step_s[0] * 1e3:.1f} ms, min {min(step_s[1:]) * 1e3:.2f}, max "
+            f"{max(step_s[1:]) * 1e3:.2f}), {TRAIN_B * TRAIN_S / ms * 1e3:.0f}"
+            f" tokens/s, {flop / (ms / 1e3) / 1e12:.1f} TFLOP/s of 8 N T; "
+            f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB) on "
+            f"{card}")
+        log(f"phase 17 checkpoint at step {TRAIN_STEPS - 1}: {ck_bytes} bytes "
+            f"in {len(list(ck.glob('arr_*.npy')))} files; snapshot (device "
+            f"to host) {snap_s[0]:.3f} s, write {write_s[0]:.3f} s "
+            f"({ck_bytes / write_s[0] / 1e9:.2f} GB/s), free under build/ "
+            f"{free} bytes before")
+
+        params, opt_state, _ = kept.pop("state")
+        target = dict(zip(("params", "opt"), init_fn()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(tmp, TRAIN_STEPS - 1, target)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        del target
+        want = leaves({"params": params, "opt": opt_state})
+        got = leaves(restored)
+        if len(got) != len(want) or not all(
+                a.device.type == dev.type and a.dtype == b.dtype
+                and torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("phase 17: the restored checkpoint differs "
+                                 "from the final state")
+        log(f"phase 17 restore of step {TRAIN_STEPS - 1} onto the card: "
+            f"{len(got)} leaves bit-identical to the final params and "
+            f"moments in {t_restore:.3f} s ({ck_bytes / t_restore / 1e9:.2f} "
+            f"GB/s; the files just written, so the read was warm)")
+        del restored, got, want
+
+    # ------ forward+backward and the optimizer update, timed apart
+    src = SyntheticLM(data_cfg, device=dev)
+    fb, upd = [], []
+    for i in range(TRAIN_SPLIT_STEPS):
+        batch = src.batch_at(TRAIN_STEPS + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(model, params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        apply_updates(opt_cfg, params, grads, opt_state)
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        upd.append(time.perf_counter() - t1)
+        del grads
+    log(f"phase 17 {LLAMA} full width, {TRAIN_SPLIT_STEPS} steps apart: "
+        f"forward+backward {[round(t * 1e3, 2) for t in fb]} ms, AdamW "
+        f"update {[round(t * 1e3, 2) for t in upd]} ms "
+        f"(median {statistics.median(fb) * 1e3:.2f} / "
+        f"{statistics.median(upd) * 1e3:.2f} ms; loss {float(loss):.4f})")
+    batch = src.batch_at(TRAIN_STEPS + TRAIN_SPLIT_STEPS)
+    wall, busy, count, gemm, top = train_profile(
+        lambda: apply_updates(opt_cfg, params,
+                              value_and_grad(model, params, batch)[1],
+                              opt_state))
+    log(f"profile {LLAMA} full-width train step (forward+backward and the "
+        f"AdamW update): wall {wall * 1e3:.1f} ms under the profiler, device "
+        f"busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%) in {count} "
+        f"kernels; GEMM kernels {gemm * 1e3:.1f} ms ({100 * gemm / busy:.1f}% "
+        f"of busy); top (name, ms, launches): {top}")
+    del params, opt_state, kept, loss, batch
+    free_model(f"phase 17 {LLAMA} full width")
+
+    # ------------------------------------------------- the CLI, tiny width
+    with tempfile.TemporaryDirectory(dir=build, prefix="train_cli_") as tmp:
+        t0 = time.perf_counter()
+        if train.main(["--arch", LLAMA, "--width", "tiny", "--steps", "12",
+                       "--ckpt-every", "6", "--ckpt-dir", tmp,
+                       "--device", dev.type]) != 0:
+            raise AssertionError("launch.train.main failed")
+        log(f"phase 17 python -m repro_torch.launch.train --arch {LLAMA} "
+            f"--width tiny --steps 12 on the card: {time.perf_counter() - t0:.3f}"
+            f" s, latest checkpoint {checkpoint.latest_step(tmp)}")
+
+    # ---------------------------- restart drill: a fault before step 9
+    tcfg = train.tiny_config(get_config(LLAMA))
+    tmodel = build_model(tcfg)
+    topt = AdamWConfig(lr=1e-2, warmup=2, total_steps=12)
+
+    def tiny_init():
+        params = tmodel.init(torch.Generator(dev).manual_seed(0),
+                             torch.float32, dev)
+        return params, init_state(topt, params)
+
+    fired = []
+
+    def fault(step_i):
+        if step_i == 9 and not fired:
+            fired.append(step_i)
+            raise RuntimeError("injected node failure")
+
+    with tempfile.TemporaryDirectory(dir=build, prefix="train_drill_") as tmp:
+        drv = TrainDriver(DriverConfig(total_steps=12, ckpt_every=4,
+                                       ckpt_dir=tmp, max_restarts=3),
+                          DataConfig(vocab=tcfg.vocab, seq_len=64,
+                                     global_batch=4),
+                          make_train_step(tmodel, topt), tiny_init,
+                          fault_hook=fault)
+        hist = drv.run()
+        steps = [h.step for h in hist]
+        l8 = [h.loss for h in hist if h.step == 8]
+        latest = checkpoint.latest_step(tmp)
+        if drv.restarts != 1 or steps.count(8) != 2 or steps.count(9) != 1 \
+                or steps[-1] != 11 or abs(l8[0] - l8[1]) >= 1e-6 \
+                or latest != 11:
+            raise AssertionError(f"phase 17 restart drill: restarts "
+                                 f"{drv.restarts}, steps {steps}, step 8 "
+                                 f"losses {l8}, latest {latest}")
+    log(f"phase 17 restart drill ({LLAMA} tiny, 12 steps, checkpoints every "
+        f"4, a fault before step 9): 1 restart from step 7, steps {steps}, "
+        f"step 8 losses {l8[0]!r} and {l8[1]!r}, latest step {latest}")
+    log(f"phase 17 wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
     """Phase 12 for flash attention: times and bounds at llama3.2-1b's
     prefill-step shape, in f32 as the path runs it (bf16 beside it)."""
@@ -2349,6 +2761,7 @@ def main() -> int:
             raise AssertionError(f"{r['name']} at the prefill step: "
                                  f"{step['ms']} ms is below its bound "
                                  f"{step['bound_ms']}")
+    train_path(dev, card)
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")
     log(json.dumps({"kernels": records}))

@@ -34,6 +34,21 @@ def default_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def refuse_autograd(kernel: str, *tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` requires grad.
+
+    A hand-written kernel fills a fresh output that autograd cannot see,
+    so its gradients would be silently missing; the reference's Pallas
+    kernels define no VJP either, and its training runs the plain route.
+    Checked on every device, before the dispatch, with no fallback."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the hand-written kernel has no backward (the "
+            f"reference's Pallas kernels define no VJP); training runs on "
+            f"attn_impl=\"xla\"")
+
+
 def build_dir() -> Path:
     """Where hand-written kernels are compiled to (``build/repro_torch``)."""
     return REPO_ROOT / "build" / "repro_torch"

@@ -5,8 +5,9 @@ graph (the ``DeviceGraph``/``DeviceSchedule`` columns and the fused
 executor's tile-origin rows) and the stencil grid: :func:`from_reference`;
 and the distributed engines' rank partition:
 :func:`rank_slices_from_reference`.
-For the models it is the architecture config and the parameter pytree:
-:func:`config_from_reference` and :func:`params_from_reference`.  Both
+For the models it is the architecture config, the parameter pytree and
+the optimizer state: :func:`config_from_reference`,
+:func:`params_from_reference` and :func:`opt_state_from_reference`.  Both
 take the reference's objects duck-typed — anything with the same
 attributes and NumPy arrays, so this module imports nothing of the
 reference — check every column's or leaf's type and shape, and return the
@@ -27,6 +28,7 @@ from .core.edt.distributed import RankSlice
 from .models import build_model
 from .models.config import (ArchConfig, MLAConfig, MoEConfig, RWKVConfig,
                             SSMConfig)
+from .optim import MomentState, _q8_last
 
 _GRAPH_COLUMNS = ("indptr", "succ", "dec_src", "dec_ptr", "pred_n")
 _SCHEDULE_COLUMNS = ("order", "task_ptr", "lvl_tgt", "edge_ptr")
@@ -131,7 +133,8 @@ def rank_slices_from_reference(slices) -> list[RankSlice]:
 _SUBCONFIGS = {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig,
                "rwkv": RWKVConfig}
 _NP_TO_TORCH = {"float32": torch.float32, "float64": torch.float64,
-                "float16": torch.float16, "bfloat16": torch.bfloat16}
+                "float16": torch.float16, "bfloat16": torch.bfloat16,
+                "int8": torch.int8, "int32": torch.int32}
 
 
 def config_from_reference(cfg) -> ArchConfig:
@@ -194,3 +197,47 @@ def params_from_reference(tree, cfg, device=None):
     want = build_model(port_cfg).init(torch.Generator(), dtype,
                                       device="meta")
     return _carry(tree, want, "", device), port_cfg
+
+
+def opt_state_from_reference(state, params):
+    """The port's AdamW state from the reference's ``init_state`` /
+    ``apply_updates`` state.
+
+    ``state`` is ``{"mv": ..., "step": ...}`` with NumPy leaves: a tree
+    shaped like ``params`` whose leaves have the attributes ``m, v,
+    m_scale, v_scale`` (the reference's ``MomentState``).  Moments are f32
+    of the param's shape, or int8 with f32 block scales of shape
+    ``p.shape[:-1] + (blocks,)`` when ``m_scale`` is set; ``step`` is an
+    int32 scalar.  Any other dtype or shape raises ``ValueError`` naming
+    the leaf.  Each leaf goes to its param's device."""
+    def one(mv, p, path):
+        meta = dict(device="meta")
+        if getattr(mv, "m_scale", None) is None:
+            want = MomentState(torch.empty(p.shape, dtype=torch.float32, **meta),
+                               torch.empty(p.shape, dtype=torch.float32, **meta))
+        else:
+            sshape = tuple(p.shape[:-1]) + (p.shape[-1] // _q8_last(p),)
+            want = MomentState(
+                *(torch.empty(p.shape, dtype=torch.int8, **meta),) * 2,
+                *(torch.empty(sshape, dtype=torch.float32, **meta),) * 2)
+        return MomentState(*(
+            None if w is None else _leaf(getattr(mv, f), w, f"{path}.{f}",
+                                         p.device)
+            for f, w in zip(MomentState._fields, want)))
+
+    def walk(mv, p, path):
+        if isinstance(p, dict):
+            if not isinstance(mv, dict) or set(mv) != set(p):
+                got = sorted(mv) if isinstance(mv, dict) else type(mv)
+                raise ValueError(f"{path or 'mv'}: want keys {sorted(p)}, "
+                                 f"got {got}")
+            return {k: walk(mv[k], p[k], f"{path}/{k}") for k in p}
+        return one(mv, p, path)
+
+    first = next(iter(params.values()))
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    step = _leaf(state["step"], torch.empty((), dtype=torch.int32,
+                                            device="meta"), "step",
+                 first.device)
+    return {"mv": walk(state["mv"], params, ""), "step": step}

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from ..compat import refuse_autograd
+
 NEG_INF = -1e30
 #: the reference's default block (flash_attention.py:76): Sq and Skv must be
 #: multiples of min(BLOCK, length); the kernel itself tiles by 64
@@ -103,9 +105,12 @@ def flash_attention_hm(q, k, v, *, causal: bool = True):
     ``ValueError``.  On CUDA tensors
     (float32 or bfloat16, contiguous, D 64 or 128) this launches the
     kernel on the current stream; on CPU tensors it runs the plain
-    version.  ``flash_attention_hm.launches`` counts kernel launches.
+    version.  With grad mode on, an input that requires grad is refused
+    on every device.  ``flash_attention_hm.launches`` counts kernel
+    launches.
     """
     _check_shapes(q, k, v)
+    refuse_autograd("flash_attention_hm", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_hm_torch(q, k, v, causal=causal)
     if q.device.type != "cuda":

@@ -18,6 +18,8 @@ import functools
 
 import torch
 
+from ..compat import refuse_autograd
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel pads P and N to 64 in shared memory
 MAX_DIM = 64
@@ -128,10 +130,12 @@ def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     own chunks of 64, the same function up to rounding.  On CUDA tensors
     this launches the kernel on the current stream (two CUDA kernels: each
     chunk's ``C Bᵀ``, shared by the heads, then the scan); on CPU tensors
-    it runs the plain version.  ``ssd.launches`` counts those launches,
-    one a call.
+    it runs the plain version.  With grad mode on, an input that requires
+    grad is refused on every device.  ``ssd.launches`` counts those
+    launches, one a call.
     """
     _check_args(x, dt, A, Bm, Cm, init_state, chunk)
+    refuse_autograd("ssd", x, dt, A, Bm, Cm, init_state)
     if x.device.type == "cpu":
         return ssd_torch(x, dt, A, Bm, Cm, init_state, chunk=chunk)
     if x.device.type != "cuda":

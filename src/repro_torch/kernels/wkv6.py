@@ -20,6 +20,8 @@ import functools
 
 import torch
 
+from ..compat import refuse_autograd
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
 
@@ -106,10 +108,12 @@ def wkv6(r, k, v, w, u, init_state=None, *, chunk: int = 64):
     ``chunk`` keeps the reference's rule: ``S`` must be a multiple of
     ``min(chunk, S)``, else ``ValueError``; the kernel stages time in its
     own stretches.  On CUDA tensors this launches the kernel on the
-    current stream; on CPU tensors it runs the plain version.
+    current stream; on CPU tensors it runs the plain version.  With grad
+    mode on, an input that requires grad is refused on every device.
     ``wkv6.launches`` counts kernel launches.
     """
     _check_args(r, k, v, w, u, init_state, chunk)
+    refuse_autograd("wkv6", r, k, v, w, u, init_state)
     if r.device.type == "cpu":
         return wkv6_torch(r, k, v, w, u, init_state)
     if r.device.type != "cuda":

@@ -2,10 +2,9 @@
 
 The port of the reference package's ``models/__init__.py``.  The dense
 decoder (GQA), RWKV6 and hybrid (Mamba2 + shared attention) families are
-built; every other family raises
-``NotImplementedError`` naming its ROADMAP item, and so does ``loss``
-until training is ported.  Parameters are dicts of tensors mirroring the
-reference's pytree; ``init`` and ``init_cache`` place them on CUDA unless
+built; every other family raises ``NotImplementedError`` naming its
+ROADMAP item.  Parameters are dicts of tensors mirroring the reference's
+pytree; ``init`` and ``init_cache`` place them on CUDA unless
 the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -24,7 +23,7 @@ class Model:
     """Uniform handle: every family exposes the same five functions."""
     cfg: ArchConfig
     init: Callable          # (generator, dtype, device) -> params
-    loss: Callable          # (params, batch) -> scalar (not ported yet)
+    loss: Callable          # (params, batch) -> scalar
     forward: Callable       # (params, tokens, **kw) -> (logits, caches)
     init_cache: Callable    # (batch, max_len, dtype, device) -> caches
     decode_step: Callable   # (params, tokens1, caches, pos) -> (logits, caches)
@@ -45,17 +44,13 @@ def _family_module(cfg: ArchConfig):
     return transformer
 
 
-def _no_loss(params, batch):
-    raise NotImplementedError("training is not ported yet: ROADMAP Queue 1 #2")
-
-
 def build_model(cfg: ArchConfig) -> Model:
     mod = _family_module(cfg)
     return Model(
         cfg=cfg,
         init=lambda gen, dtype=torch.bfloat16, device=None: mod.init_params(
             cfg, gen, dtype, device),
-        loss=_no_loss,
+        loss=lambda params, batch: mod.loss_fn(cfg, params, batch),
         forward=lambda params, tokens, **kw: mod.forward(
             cfg, params, tokens, **kw),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, device=None:

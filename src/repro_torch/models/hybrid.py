@@ -8,7 +8,10 @@ cache once the window is shorter than the cache.  The reference's groups
 of SSM layers scanned between attention applications become one Python
 loop over the layers (the same order); ``seq_shard`` and ``ParallelCtx``
 have no counterpart on one card.  Mamba2 layers stay stacked (``[n_ssm,
-...]``) as in the reference; decode caches are updated in place.
+...]``) as in the reference, each rematerialised in the backward when
+training (the shared block is not, as in the reference; its weights get
+one gradient summed over its applications); decode caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from ..compat import default_device
 from .config import ArchConfig
 from .layers import gqa_apply, gqa_params, mlp_apply, mlp_params, normal, rmsnorm
 from .ssm import mamba2_apply, mamba2_params
-from .transformer import attn_cache, layer, layer_cache
+from .transformer import (attn_cache, layer, layer_cache, remat,
+                          rematerialised, unstack, xent)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -77,6 +81,14 @@ def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
     x = params["embed"][tokens]
     S = x.shape[1]
     positions = torch.arange(S, device=x.device) + pos_offset
+    on = caches is None and remat(cfg, params)
+    ssm_layers = unstack(params["ssm_layers"], _n_ssm(cfg))
+
+    def ssm_body(p, x, c):
+        y, nc = mamba2_apply(p["mamba"], rmsnorm(p["ln"], x, cfg.rms_eps),
+                             cfg, cache=c)
+        return x + y, nc
+
     ssm_i = attn_i = 0
     for i in range(cfg.n_layers):
         if _is_attn_layer(cfg, i):
@@ -91,11 +103,13 @@ def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
             x = x + mlp_apply(p["mlp"], h, cfg.mlp)
             attn_i += 1
         else:
-            p = layer(params["ssm_layers"], ssm_i)
+            p = ssm_layers[ssm_i]
             c = None if caches is None else layer(caches["ssm"], ssm_i)
-            y, nc = mamba2_apply(p["mamba"], rmsnorm(p["ln"], x, cfg.rms_eps),
-                                 cfg, cache=c)
-            x = x + y
+            if on:
+                x = rematerialised(lambda p, x: ssm_body(p, x, None)[0],
+                                   p, x)
+            else:
+                x, nc = ssm_body(p, x, c)
             if caches is not None:
                 caches["ssm"]["conv"][ssm_i] = nc["conv"]
                 caches["ssm"]["ssm"][ssm_i] = nc["ssm"]
@@ -109,6 +123,11 @@ def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
                       "attn": {**caches["attn"],
                                "len": caches["attn"]["len"] + S}}
     return logits, new_caches
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    logits, _ = forward(cfg, params, batch["tokens"])
+    return xent(logits, batch["labels"])
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -1,8 +1,9 @@
 """RWKV6 ("Finch") language model: attention-free, O(S) compute, O(1) state.
 
 The port of the reference package's ``models/rwkv.py``.  Layers stay
-stacked as in the reference and are looped over in Python; decode caches
-are updated in place.
+stacked as in the reference and are looped over in Python, each
+rematerialised in the backward when training (as the reference's scanned
+body is); decode caches are updated in place.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from ..compat import default_device
 from .config import ArchConfig
 from .layers import normal
 from .ssm import rwkv6_channel_mix, rwkv6_params, rwkv6_time_mix
-from .transformer import layer, stack
+from .transformer import layer, remat, rematerialised, stack, unstack, xent
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -53,16 +54,23 @@ def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
     del pos_offset, window, extra_embeds   # no positions, no frontend
     x = _ln(params["ln_in"], params["embed"][tokens], cfg.rms_eps)
     use_kernel = cfg.attn_impl == "cuda"
-    for i in range(cfg.n_layers):
-        p = layer(params["layers"], i)
-        c = None if caches is None else layer(caches, i)
+    on = caches is None and remat(cfg, params)
+
+    def body(p, x, c):
         a, tm_new = rwkv6_time_mix(p["mix"], _ln(p["ln1"], x, cfg.rms_eps),
                                    cfg, cache=None if c is None else c["tm"],
                                    use_kernel=use_kernel)
         x = x + a
         f, cm_new = rwkv6_channel_mix(p["mix"], _ln(p["ln2"], x, cfg.rms_eps),
                                       cache=None if c is None else c["cm"])
-        x = x + f
+        return x + f, tm_new, cm_new
+
+    for i, p in enumerate(unstack(params["layers"], cfg.n_layers)):
+        if on:
+            x = rematerialised(lambda p, x: body(p, x, None)[0], p, x)
+            continue
+        c = None if caches is None else layer(caches, i)
+        x, tm_new, cm_new = body(p, x, c)
         if caches is not None:
             caches["tm"]["shift"][i] = tm_new["shift"]
             caches["tm"]["wkv"][i] = tm_new["wkv"]
@@ -71,6 +79,11 @@ def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
     logits = x @ (params["embed"].T if cfg.tie_embeddings
                   else params["unembed"])
     return logits, caches
+
+
+def loss_fn(cfg: ArchConfig, params, batch):
+    logits, _ = forward(cfg, params, batch["tokens"])
+    return xent(logits, batch["labels"])
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -4,7 +4,9 @@
   the reference package ``repro`` (an AST scan), and importing the port
   loads neither (a fresh interpreter).
 * The entry points run on CUDA unless the caller passes ``device="cpu"``:
-  on a host without CUDA they raise instead of running on the CPU.
+  on a host without CUDA they raise instead of running on the CPU
+  (serving and training alike: ``init_all``, ``SyntheticLM``, the
+  ``TrainDriver`` through its ``init_fn``, ``launch.train.main``).
 * The kernel wrappers run their plain versions only for CPU tensors: any
   other tensor launches the kernel or raises, never falls back.
 * The CUDA build refuses loudly without ``nvcc``.
@@ -33,7 +35,12 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd as sd  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.kernels.stencils import SPECS, handwritten_solve  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.steps import init_all, make_train_step  # noqa: E402
+from repro_torch.optim import AdamWConfig, init_state  # noqa: E402
+from repro_torch.runtime import DriverConfig, TrainDriver  # noqa: E402
 from repro_torch.models import build_model, hybrid, rwkv, transformer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -70,7 +77,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "import repro_torch.kernels.ssd, repro_torch.models.hybrid\n"
         "import repro_torch.models, repro_torch.configs\n"
         "import repro_torch.launch.serve, repro_torch.launch.steps\n"
-        "import repro_torch.launch.edt_serve\n"
+        "import repro_torch.launch.edt_serve, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+        "import repro_torch.runtime, repro_torch.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -123,7 +132,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize("name,family", [
     ("llama3.2-1b", transformer), ("rwkv6-1.6b", rwkv),
     ("zamba2-7b", hybrid)])
-def test_model_entry_points_raise_without_cuda(monkeypatch, name, family):
+def test_model_entry_points_raise_without_cuda(monkeypatch, tmp_path, name,
+                                              family):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config(name).smoke_config()
     m = build_model(cfg)
@@ -138,9 +148,33 @@ def test_model_entry_points_raise_without_cuda(monkeypatch, name, family):
         serve(cfg, batch=2, prompt_len=8, gen=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.params_from_reference({}, cfg)
+    # the training entry points
+    opt = AdamWConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_all(m, opt, gen, torch.float32)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SyntheticLM(dcfg)
+
+    def init_fn():
+        params = m.init(gen, torch.float32)
+        return params, init_state(opt, params)
+
+    drv = TrainDriver(DriverConfig(total_steps=1, ckpt_dir=str(tmp_path),
+                                   max_restarts=0), dcfg,
+                      make_train_step(m, opt), init_fn)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        drv.run()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", name, "--width", "tiny", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
     # the CPU, asked for by name, runs
     res = serve(cfg, batch=2, prompt_len=8, gen=2, device="cpu")
     assert tuple(res.tokens.shape) == (2, 2)
+    params, state = init_all(m, opt, gen, torch.float32, device="cpu")
+    batch = SyntheticLM(dcfg, device="cpu").batch_at(0)
+    _, _, loss = make_train_step(m, opt)(params, state, batch)
+    assert bool(torch.isfinite(loss)) and int(state["step"]) == 1
 
 
 def _refuse(*args, **kwargs):

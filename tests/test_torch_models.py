@@ -219,9 +219,33 @@ def test_unported_families_name_their_roadmap_item(name, item):
 
 
 def test_loss_is_not_ported_yet():
-    m = build_model(configs.get_config("llama3.2-1b").smoke_config())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #2"):
-        m.loss({}, {})
+    """Once a stub, the loss is ported: it runs on the plain route, and
+    the kernel routes refuse grad mode (the hand-written kernels have no
+    backward, as the reference's Pallas kernels define no VJP) on every
+    device, before the dispatch, instead of returning outputs detached
+    from autograd; under ``no_grad`` they run.  ``attn_impl`` is still
+    checked."""
+    for name, S in (("llama3.2-1b", 128), ("rwkv6-1.6b", 64),
+                    ("zamba2-7b", 64)):
+        cfg = configs.get_config(name).smoke_config()
+        params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                       torch.float32, device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, S),
+                               generator=torch.Generator().manual_seed(1))
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
+        for p in jax.tree.leaves(params):
+            p.requires_grad_(True)
+        loss = build_model(cfg).loss(params, batch)
+        assert loss.requires_grad and bool(torch.isfinite(loss))
+        kernel = build_model(cfg.replace(attn_impl="cuda"))
+        with pytest.raises(RuntimeError, match="no backward"):
+            kernel.loss(params, batch)
+        with torch.no_grad():
+            got = kernel.loss(params, batch)
+        torch.testing.assert_close(got, loss.detach(), **LOGIT_TOL)
     with pytest.raises(ValueError, match="attn_impl"):
         layers.attention_core(torch.zeros(1, 4, 2, 8), torch.zeros(1, 4, 2, 8),
                               torch.zeros(1, 4, 2, 8), impl="pallas")
+    q = torch.zeros(1, 128, 2, 64, requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attention_hm: .*no backward"):
+        layers.attention_core(q, q, q, impl="cuda")
