@@ -8,9 +8,11 @@ polyhedral program, index graph, wavefront schedule, counted-sync sweeps
 on the card and fused stencil tiles, at the size of the reference's
 acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks),
 and the same graph split over ranks by the distributed engine.
-The serving path: llama3.2-1b, rwkv6-1.6b and zamba2-7b (Mamba2 + shared
-attention) at full width and depth, f32 weights drawn from a seed.  The
-training path: llama3.2-1b at full width, all three at tiny width.
+The serving path: llama3.2-1b, rwkv6-1.6b, zamba2-7b (Mamba2 + shared
+attention) and granite-moe-1b-a400m (MoE) at full width and depth, and
+deepseek-v3-671b (MLA, MoE) at full width cut to two layers, f32 weights
+drawn from a seed.  The training path: llama3.2-1b at full width, all
+three dense-or-recurrent families at tiny width.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
@@ -41,7 +43,8 @@ training path: llama3.2-1b at full width, all three at tiny width.
    without a retry policy refused as a stall; a profile of a warm run;
 9. flash attention, WKV6 and SSD against their plain torch versions on
    the card, in f32 and bf16, at the reference's test shapes (SSD's
-   state handoff too) and at the serving path's shapes (WKV6's also with
+   state handoff too) and at the serving path's shapes (flash's at
+   llama3.2-1b's and granite-moe-1b-a400m's prefill layers; WKV6's also with
    decays of exactly 0 and 1, a sequence shorter than its stretch and
    D=128);
 10. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
@@ -128,7 +131,30 @@ training path: llama3.2-1b at full width, all three at tiny width.
     update timed apart, and its one 14.8 GB checkpoint's bytes, snapshot
     and write seconds, restored bit-identical onto the card; the CLI at
     tiny width; a restart drill (a fault before step 9 of 12, checkpoints
-    every 4) replaying step 8 with the same loss.
+    every 4) replaying step 8 with the same loss;
+18. the MoE and MLA half of the decoder family, after phase 17.
+    granite-moe-1b-a400m (24 layers, 32 experts top-8, every layer MoE,
+    the grouped one-hot einsum dispatch): ``make_prefill_step`` at B=2,
+    S=4096 through the flash kernel (one launch a layer, counted into its
+    record) against the same step on the plain attention, with each MoE
+    layer's top-k experts compared between the routes; a profile that
+    splits the device time into the one-hot dispatch and combine einsums,
+    the expert GEMMs and the ``x @ W`` GEMMs; the flash kernel timed at
+    its shape against its bound and ``scaled_dot_product_attention``; the
+    serve loop (B=4, prompt 512, 32 tokens); one MoE layer on the card
+    against the same code on the CPU at T=512.  deepseek-v3-671b, every
+    width as published, depth cut to one dense and one MoE layer
+    (13,944,094,720 parameters, 55.8 GB): ``make_prefill_step`` at B=2,
+    S=4096 (8,192 tokens: ``moe_ep_apply``; MLA's head dims 192/128 take
+    the plain attention, no flash launch) with its peak memory; the serve
+    loop (the einsum dispatch at capacity 20 in prefill, 1 in decode, so
+    tokens are dropped, and the absorbed MLA decode) held step by step
+    against the materialised decode on the same tokens; its MLA layer and
+    its MoE layer (both forms) on the card against the CPU at T=512.
+    Incremental decode is not held against the full forward here: at
+    capacity factor 1.25 the reference drops tokens, so the two differ by
+    its own semantics (the CPU tests hold that at drop-free smoke
+    configs).
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -225,15 +251,16 @@ RING_B = 1                              # ring cache: prompt = the window
 PREFILL_B, PREFILL_S = 2, 4096          # make_prefill_step, flash on path
 SERVE_B, SERVE_LP, SERVE_G = 4, 512, 32  # the serve loop
 #: flash cases (B, H, Hkv, Sq, Skv, D, causal): tests/test_kernels.py's
-#: shapes, then llama3.2-1b's prefill layer, a non-causal Sq != Skv and a
-#: length that is not a multiple of the kernel's 64-row tiles
+#: shapes, then llama3.2-1b's prefill layer, a non-causal Sq != Skv, a
+#: length that is not a multiple of the kernel's 64-row tiles, and
+#: granite-moe-1b-a400m's prefill layer
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True), (2, 4, 2, 256, 256, 64, True),
     (1, 3, 1, 384, 384, 128, True), (1, 2, 2, 128, 256, 64, False),
     (2, 32, 8, 4096, 4096, 64, True), (2, 32, 8, 512, 2048, 64, False),
-    (1, 2, 1, 100, 100, 64, True),
+    (1, 2, 1, 100, 100, 64, True), (2, 16, 8, 4096, 4096, 64, True),
 ]
-FLASH_PATH = FLASH_CASES[4]
+FLASH_PATH, FLASH_GRANITE = FLASH_CASES[4], FLASH_CASES[7]
 #: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
 #: shapes, then rwkv6-1.6b's serve prefill with and without a state and
 #: its make_prefill_step, then a sequence shorter than the kernel's
@@ -353,28 +380,55 @@ def host_us(fn) -> float:
     return statistics.median(samples[2:])
 
 
-def device_profile(fn):
+def op_chain(op):
+    """A profiler CPU event and its parents, innermost first."""
+    while op is not None:
+        yield op
+        op = op.cpu_parent
+
+
+def device_profile(fn, classify=None):
     """``(wall s, device-busy s, kernels, top 3 kernels by device time)``
-    of one call under ``torch.profiler`` (one stream: kernel times add)."""
+    of one call under ``torch.profiler`` (one stream: kernel times add).
+
+    With ``classify`` (a profiler CPU event to a class name; shapes are
+    recorded) a fifth item, ``{class: device ms}``: each kernel counts
+    once, classed by the innermost aten op of its correlation id, and the
+    device time no aten op launched (the hand-written kernels, through
+    ctypes) is "outside aten ops"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=classify is not None) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = collections.Counter()
     count = 0
+    launched = collections.defaultdict(list)    # correlation id -> CPU events
     for e in prof.events():
         if e.device_type.name == "CUDA":
             by_name[e.name[:60]] += e.time_range.elapsed_us()
             count += 1
+        elif classify is not None and e.kernels:
+            launched[e.id].append(e)
     busy = sum(by_name.values()) / 1e6
     top = [(k, round(v / 1e3, 3)) for k, v in by_name.most_common(3)]
-    return wall, busy, count, top
+    if classify is None:
+        return wall, busy, count, top
+    # every CPU event of one correlation id lists the same kernels: count
+    # them once, with the innermost aten op among those events
+    split = collections.Counter()
+    for same in launched.values():
+        aten = [a for a in same if a.name.startswith("aten::")] or same
+        op = max(aten, key=lambda a: len(list(op_chain(a))))
+        split[classify(op)] += sum(k.duration for k in same[0].kernels)
+    split["outside aten ops"] = sum(by_name.values()) - sum(split.values())
+    return wall, busy, count, top, {k: round(v / 1e3, 3)
+                                    for k, v in split.most_common()}
 
 
 def edt_path(dev, card) -> tuple[dict, dict]:
@@ -1390,6 +1444,8 @@ def check_kernels(dev) -> dict:
             errs.append(err)
             if case == FLASH_PATH and dtype == torch.float32:
                 path_err["flash_attention_hm"] = err
+            if case == FLASH_GRANITE and dtype == torch.float32:
+                path_err["flash_attention_hm_granite"] = err
         log(f"phase 9 flash_attention {tname} == plain version at "
             f"{len(FLASH_CASES)} shapes (B,H,Hkv,Sq,Skv,D,causal) "
             f"{FLASH_CASES}: max abs err {[f'{e:.3e}' for e in errs]} "
@@ -1517,19 +1573,23 @@ def check_kernels(dev) -> dict:
 
 
 @contextlib.contextmanager
-def plain_refused(module, name: str):
-    """``module.name`` (a kernel's plain version) raises while inside: a
-    main path on CUDA tensors must launch the kernel, never fall back."""
-    saved = getattr(module, name)
-
-    def refuse(*args, **kwargs):
-        raise AssertionError(f"{name} was reached on a CUDA main path")
-
-    setattr(module, name, refuse)
+def swapped(obj, name: str, value):
+    """``obj.name`` set to ``value`` while inside."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
     try:
         yield
     finally:
-        setattr(module, name, saved)
+        setattr(obj, name, saved)
+
+
+def plain_refused(module, name: str):
+    """``module.name`` (a kernel's plain version) raises while inside: a
+    main path on CUDA tensors must launch the kernel, never fall back."""
+    def refuse(*args, **kwargs):
+        raise AssertionError(f"{name} was reached on a CUDA main path")
+
+    return swapped(module, name, refuse)
 
 
 def decode_profile(model, params, prompts, label: str) -> None:
@@ -2071,7 +2131,6 @@ def tiny_training(dev) -> None:
             f"on CUDA tensors, no launch")
 
 
-@contextlib.contextmanager
 def timing_wrapped(obj, name: str, record: list):
     """``obj.name`` wrapped to append each call's host seconds to
     ``record`` while inside."""
@@ -2084,11 +2143,7 @@ def timing_wrapped(obj, name: str, record: list):
         finally:
             record.append(time.perf_counter() - t0)
 
-    setattr(obj, name, wrapped)
-    try:
-        yield
-    finally:
-        setattr(obj, name, saved)
+    return swapped(obj, name, wrapped)
 
 
 def train_profile(fn):
@@ -2320,6 +2375,449 @@ def train_path(dev, card) -> None:
         f"4, a fault before step 9): 1 restart from step 7, steps {steps}, "
         f"step 8 losses {l8[0]!r} and {l8[1]!r}, latest step {latest}")
     log(f"phase 17 wall {time.perf_counter() - t_phase:.3f} s")
+
+
+# ------------------------------------------------ phase 18: MoE and MLA
+GRANITE, DEEPSEEK = "granite-moe-1b-a400m", "deepseek-v3-671b"
+GRANITE_PARAMS = 1_334_578_176
+#: deepseek-v3-671b with every width as published and its depth cut to
+#: its first (dense) layer and one MoE layer: 61 layers of f32 weights
+#: are 2.7 TB; these two are 55.8 GB of the card's 80 GB
+DEEPSEEK_CUT = dict(n_layers=2, n_dense_layers=1)
+DEEPSEEK_PARAMS = 13_944_094_720
+#: one MoE layer and one MLA layer on the card against the same code on
+#: the CPU, at this many tokens (B=1), both in f32 from the same params:
+#: the CPU tests' tolerance for a function's output
+LAYER_T = 512
+LAYER_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+@contextlib.contextmanager
+def routing_recorded(record: list):
+    """Each MoE layer's top-k expert ids (``layers.route``), one
+    ``[tokens, k]`` tensor a call, appended to ``record`` while inside."""
+    from repro_torch.models import layers
+
+    route = layers.route
+
+    def recorded(router, xt, k):
+        gate, idx = route(router, xt, k)
+        record.append(idx.reshape(-1, k).clone())
+        return gate, idx
+
+    with swapped(layers, "route", recorded):
+        yield
+
+
+def expert_sets_differ(a: list, b: list) -> list:
+    """Per MoE call, the tokens whose set of top-k experts differs."""
+    return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+            for x, y in zip(a, b, strict=True)]
+
+
+def moe_classes(cfg, T: int):
+    """A ``device_profile`` classifier of a MoE model's kernels at ``T``
+    tokens, by the outermost ``aten::bmm`` or ``aten::mm`` around the op.
+    A ``bmm`` is classed by its shape: the grouped dispatch's one-hot
+    dispatch (batch G, contraction Tg) and combine (G, E·C) einsums and
+    its routing one-hots (G·Tg, top-k), the expert GEMMs (batch E over
+    d_model and d_ff_expert), or another ``bmm`` (attention's); an ``mm``
+    is one of the ``x @ W`` GEMMs; every other kernel is in "rest"."""
+    from repro_torch.models.layers import moe_groups
+
+    mo = cfg.moe
+    G, Tg, C = moe_groups(cfg, T)
+    classes = {(G, Tg): "one-hot dispatch einsum",
+               (G, mo.n_experts * C): "one-hot combine einsum",
+               (G * Tg, mo.top_k): "routing one-hots"}
+    expert = {cfg.d_model, mo.d_ff_expert}
+
+    def label(op):
+        outer = [a for a in op_chain(op)
+                 if a.name in ("aten::bmm", "aten::mm")]
+        if not outer:
+            return "rest"
+        if outer[-1].name == "aten::mm":
+            return "x @ W GEMMs"
+        (b, _, k), (_, _, n) = outer[-1].input_shapes[:2]
+        if b == mo.n_experts and {k, n} == expert:
+            return "expert GEMMs"
+        return classes.get((b, k), "other bmm")
+
+    return label
+
+
+def einsum_ms(dev, cfg, T: int) -> dict:
+    """Device ms of one MoE layer's one-hot dispatch and combine einsums
+    and its three expert GEMMs at ``T`` tokens (``moe_einsum_apply``'s
+    shapes and einsum strings, f32, CUDA events)."""
+    import torch
+
+    from repro_torch.models.layers import moe_groups
+
+    mo = cfg.moe
+    G, Tg, C = moe_groups(cfg, T)
+    E, d, f = mo.n_experts, cfg.d_model, mo.d_ff_expert
+    gen = torch.Generator(dev).manual_seed(9)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    xt, disp, comb = rand(G, Tg, d), rand(G, Tg, E, C), rand(G, Tg, E, C)
+    xe, h = rand(G, E, C, d), rand(G, E, C, f)
+    wg, wd = rand(E, d, f), rand(E, f, d)
+    return {
+        "dispatch": event_ms(lambda: torch.einsum("gtd,gtec->gecd", xt, disp),
+                             reps=7, inner=5),
+        "combine": event_ms(lambda: torch.einsum("gecd,gtec->gtd", xe, comb),
+                            reps=7, inner=5),
+        "experts": 2 * event_ms(lambda: torch.einsum("gecd,edf->gecf", xe,
+                                                     wg), reps=7, inner=5)
+        + event_ms(lambda: torch.einsum("gecf,efd->gecd", h, wd), reps=7,
+                   inner=5),
+    }
+
+
+def profile_line(label: str, prof) -> str:
+    wall, busy, count, top, split = prof
+    return (f"profile {label}: wall {wall * 1e3:.1f} ms under the profiler, "
+            f"device busy {busy * 1e3:.1f} ms ({100 * busy / wall:.1f}%) in "
+            f"{count} kernels; device ms by product: {split}; top (name, "
+            f"ms): {top}")
+
+
+def check_generated(res, vocab: int, label: str) -> None:
+    import torch
+
+    logits = torch.stack(res.logits, dim=1)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite serve logits")
+    if not bool(((res.tokens >= 0) & (res.tokens < vocab)).all()):
+        raise AssertionError(f"{label}: generated ids outside the vocabulary")
+    if tuple(res.tokens.shape) != (SERVE_B, SERVE_G):
+        raise AssertionError(f"{label}: generated {tuple(res.tokens.shape)}")
+
+
+def layer_vs_cpu(fn, p, p_cpu, x, label: str) -> float:
+    """``fn(p, x)`` on the card against ``fn(p_cpu, x)`` on the CPU (the
+    same code; ``p_cpu`` a copy of ``p``), within ``LAYER_TOL``; the top-k
+    expert sets of any MoE call must agree.  Returns the max abs
+    difference."""
+    import torch
+
+    routes = {"card": [], "cpu": []}
+    with routing_recorded(routes["card"]):
+        got = fn(p, x).cpu()
+    with routing_recorded(routes["cpu"]):
+        want = fn(p_cpu, x.cpu())
+    differ = expert_sets_differ([r.cpu() for r in routes["card"]],
+                                routes["cpu"])
+    if any(differ):
+        raise AssertionError(f"{label}: top-k experts differ between card "
+                             f"and CPU for {differ} tokens")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **LAYER_TOL,
+                               msg=lambda m: f"{label} card vs CPU: {m}")
+    return err
+
+
+def flash_at_granite(dev, cfg) -> dict:
+    """The flash kernel at granite's prefill-step shape (f32, causal):
+    its time, the plain version's, ``scaled_dot_product_attention``'s and
+    the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_hm,
+                                                     flash_attention_hm_torch)
+
+    gen = torch.Generator(dev).manual_seed(8)
+    B, H, Hkv, S, D = (PREFILL_B, cfg.n_heads, cfg.n_kv_heads, PREFILL_S,
+                       cfg.hd())
+    q = torch.randn((B, H, S, D), generator=gen, device=dev)
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev)
+            for _ in range(2))
+    rec = {
+        "shape": f"q {list(q.shape)} k/v {list(k.shape)} f32 causal",
+        "ms": event_ms(lambda: flash_attention_hm(q, k, v), reps=7, inner=5),
+        "plain_ms": event_ms(lambda: flash_attention_hm_torch(q, k, v),
+                             reps=5, inner=2),
+        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps=7, inner=5),
+    }
+    flops = 4 * B * H * D * S * (S + 1) // 2
+    nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+    ops_s, bytes_s = flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    rec.update(flops=flops, bytes=nbytes,
+               bound_ms=max(ops_s, bytes_s) * 1e3,
+               bound_by="operations" if ops_s >= bytes_s else "bytes")
+    log(f"phase 18 flash_attention_hm at {GRANITE}'s shape ({rec['shape']}):"
+        f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+        f"scaled_dot_product_attention f32 {rec['library_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({flops} flop at 165 TFLOP/s "
+        f"(3xTF32): {ops_s * 1e3:.4f} ms; {nbytes} bytes at 3.35 TB/s: "
+        f"{bytes_s * 1e3:.4f} ms)")
+    return rec
+
+
+def granite_path(dev) -> tuple[int, dict]:
+    """Phase 18, granite-moe-1b-a400m at full width and depth (every layer
+    MoE, the grouped einsum dispatch).  Returns the flash launches of one
+    ``make_prefill_step`` call (counts set to 0 just before it) and the
+    flash kernel's record at its shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, layers, transformer
+    from repro_torch.tree import leaves
+
+    cfg = get_config(GRANITE)
+    cfg_cuda, cfg_xla = (cfg.replace(attn_impl=a) for a in ("cuda", "xla"))
+    m_cuda, m_xla = build_model(cfg_cuda), build_model(cfg_xla)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = m_cuda.init(gen, torch.float32, dev)
+    n_params = sum(t.numel() for t in leaves(params))   # norms too
+    if cfg.n_params() != GRANITE_PARAMS:
+        raise AssertionError(f"{GRANITE}: {cfg.n_params()} parameters")
+
+    # ------------------------------------------ make_prefill_step B=2 S=4096
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), device=dev,
+                           generator=gen)
+    step_cuda, step_xla = make_prefill_step(m_cuda), make_prefill_step(m_xla)
+    routes = {"cuda": [], "xla": []}
+    flash_attention_hm.launches = 0
+    with plain_refused(fa_mod, "flash_attention_hm_torch"), \
+            routing_recorded(routes["cuda"]):
+        got, t_cuda = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    launches = flash_attention_hm.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} flash launches in a prefill step "
+                             f"of {cfg.n_layers} layers")
+    with routing_recorded(routes["xla"]):
+        want, t_xla = timed(lambda: step_xla(params, {"tokens": tokens}))
+    if got.shape != (PREFILL_B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite")
+    differ = expert_sets_differ(routes["cuda"], routes["xla"])
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, **MODEL_TOL):
+        log(f"phase 18 {GRANITE} prefill step cuda vs xla: max abs {err:.3e}"
+            f" over {MODEL_TOL}; tokens whose top-k experts differ between "
+            f"the routes, layer by layer: {differ}")
+    torch.testing.assert_close(
+        got, want, **MODEL_TOL,
+        msg=lambda m: f"{GRANITE} prefill cuda vs xla: {m}")
+    del got, want
+    _, t_cuda_warm = timed(lambda: step_cuda(params, {"tokens": tokens}))
+    _, t_xla_warm = timed(lambda: step_xla(params, {"tokens": tokens}))
+    T = PREFILL_B * PREFILL_S
+    prof = device_profile(lambda: step_cuda(params, {"tokens": tokens}),
+                          moe_classes(cfg, T))
+    log(profile_line(f"{GRANITE} make_prefill_step cuda", prof))
+    layer = einsum_ms(dev, cfg, T)
+    G, Tg, C = layers.moe_groups(cfg, T)
+    log(f"phase 18 {GRANITE} one MoE layer's products at the prefill step's "
+        f"shapes (G={G} Tg={Tg} E={cfg.moe.n_experts} C={C}), CUDA events, "
+        f"ms: "
+        f"{ {k: round(v, 4) for k, v in layer.items()} }; x {cfg.n_layers} "
+        f"layers: dispatch + combine {cfg.n_layers * (layer['dispatch'] + layer['combine']):.1f} "
+        f"ms, experts {cfg.n_layers * layer['experts']:.1f} ms, of "
+        f"{prof[1] * 1e3:.1f} ms device busy")
+    log(f"phase 18 {GRANITE} ({cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe.n_experts} experts top-"
+        f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff_expert}, vocab {cfg.vocab}, "
+        f"{n_params} f32 parameters) make_prefill_step B={PREFILL_B} "
+        f"S={PREFILL_S}: {launches} flash launches; last-position logits "
+        f"cuda vs xla max abs {err:.3e} (tol {MODEL_TOL}); tokens whose "
+        f"top-k experts differ between the routes, layer by layer: {differ};"
+        f" step {t_cuda_warm * 1e3:.1f} ms cuda, {t_xla_warm * 1e3:.1f} ms "
+        f"xla (first runs {t_cuda * 1e3:.1f} / {t_xla * 1e3:.1f} ms), "
+        f"{T / t_cuda_warm:.0f} tok/s")
+    del tokens
+    free_model(f"phase 18 {GRANITE} prefill step")
+    flash = flash_at_granite(dev, cfg)
+
+    # ------------------------------------ serve B=4, prompt 512, 32 tokens
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
+                            generator=gen)
+    first = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                  prompts=prompts)
+    res = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                prompts=prompts)
+    if not torch.equal(res.tokens, first.tokens):
+        raise AssertionError("two serve runs of one prompt differ")
+    check_generated(res, cfg.vocab, GRANITE)
+    log(f"phase 18 {serve_line(GRANITE, res, first.prefill_s)}; sample ids "
+        f"{res.tokens[0, :8].tolist()}")
+    decode_profile(m_cuda, params, prompts, GRANITE)
+
+    # ------------------------------ one MoE layer, card against the CPU
+    x = torch.randn((1, LAYER_T, cfg.d_model), generator=gen, device=dev)
+    p_moe = transformer.layer(params["moe_layers"], 0)["moe"]
+    err = layer_vs_cpu(lambda p, x: layers.moe_einsum_apply(p, x, cfg),
+                       p_moe, tree_to(p_moe, "cpu"), x,
+                       f"{GRANITE} MoE layer 0")
+    log(f"phase 18 {GRANITE} MoE layer 0 (einsum dispatch, T={LAYER_T}) on "
+        f"the card vs the CPU: top-k experts identical, max abs {err:.3e} "
+        f"(tol {LAYER_TOL})")
+    del params, first, res, p_moe
+    free_model(f"phase 18 {GRANITE}")
+    return launches, flash
+
+
+def deepseek_path(dev) -> None:
+    """Phase 18, deepseek-v3-671b at full width, two layers (one dense, one
+    MoE): the prefill step through the expert-parallel form, the serve loop
+    through the einsum dispatch and the absorbed MLA decode, held against
+    the materialised decode; one MLA and one MoE layer (both forms)
+    against the CPU."""
+    import functools
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, layers, transformer
+    from repro_torch.tree import leaves
+
+    cfg = get_config(DEEPSEEK).replace(**DEEPSEEK_CUT, attn_impl="cuda")
+    model = build_model(cfg)
+    gen = torch.Generator(dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen, torch.float32, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))   # norms too
+    if cfg.n_params() != DEEPSEEK_PARAMS:
+        raise AssertionError(f"{DEEPSEEK}: {cfg.n_params()} parameters")
+    weights = torch.cuda.memory_allocated()
+
+    # ------------------------------------------ make_prefill_step B=2 S=4096
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S), device=dev,
+                           generator=gen)
+    step = make_prefill_step(model)
+    forms = {"ep": [], "einsum": []}
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_hm.launches = 0
+    with timing_wrapped(transformer, "moe_ep_apply", forms["ep"]), \
+            timing_wrapped(transformer, "moe_einsum_apply", forms["einsum"]):
+        got, t_first = timed(lambda: step(params, {"tokens": tokens}))
+    peak = torch.cuda.max_memory_allocated()
+    if (len(forms["ep"]), len(forms["einsum"])) != (1, 0):
+        raise AssertionError(f"prefill step MoE forms {forms}: want one "
+                             f"moe_ep_apply")
+    if flash_attention_hm.launches:
+        raise AssertionError("MLA's head dims reached the flash kernel")
+    if got.shape != (PREFILL_B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite")
+    del got
+    _, t_warm = timed(lambda: step(params, {"tokens": tokens}))
+    T = PREFILL_B * PREFILL_S
+    log(profile_line(f"{DEEPSEEK} make_prefill_step", device_profile(
+        lambda: step(params, {"tokens": tokens}), moe_classes(cfg, T))))
+    log(f"phase 18 {DEEPSEEK} cut to {cfg.n_layers} layers ({cfg.n_dense_layers}"
+        f" dense; d {cfg.d_model}, {cfg.n_heads} MLA heads, q/kv rank "
+        f"{cfg.mla.q_lora_rank}/{cfg.mla.kv_lora_rank}, {cfg.moe.n_experts} "
+        f"experts top-{cfg.moe.top_k} + {cfg.moe.n_shared} shared, dense d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {cfg.n_params()} f32 parameters, "
+        f"{n_params} with the norms, "
+        f"{weights} bytes on the card, drawn in {t_init:.3f} s) "
+        f"make_prefill_step B={PREFILL_B} S={PREFILL_S}: moe_ep_apply "
+        f"{len(forms['ep'])} call ({forms['ep'][0] * 1e3:.1f} ms host clock, "
+        f"first run), no flash launch (MLA's q/k head dim "
+        f"{cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim} against v's "
+        f"{cfg.mla.v_head_dim}: the plain route); step {t_warm * 1e3:.1f} ms "
+        f"(first run {t_first * 1e3:.1f} ms), {T / t_warm:.0f} tok/s; peak "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB)")
+    del tokens
+    free_model(f"phase 18 {DEEPSEEK} prefill step")
+
+    # ------------------------------------ serve B=4, prompt 512, 32 tokens
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
+                            generator=gen)
+    first = serve(cfg, gen=SERVE_G, device=dev, params=params,
+                  prompts=prompts)
+    forms = {"ep": [], "einsum": []}
+    with timing_wrapped(transformer, "moe_ep_apply", forms["ep"]), \
+            timing_wrapped(transformer, "moe_einsum_apply", forms["einsum"]):
+        res = serve(cfg, gen=SERVE_G, device=dev, params=params,
+                    prompts=prompts)
+    if (len(forms["ep"]), len(forms["einsum"])) != (0, SERVE_G):
+        raise AssertionError(f"serve MoE forms {forms}: want {SERVE_G} "
+                             f"einsum dispatches")
+    if not torch.equal(res.tokens, first.tokens):
+        raise AssertionError("two serve runs of one prompt differ")
+    check_generated(res, cfg.vocab, DEEPSEEK)
+
+    # the materialised decode on the absorbed run's tokens, step by step
+    materialised = functools.partial(layers.mla_apply, absorbed_decode=False)
+    with swapped(transformer, "mla_apply", materialised):
+        caches = model.init_cache(SERVE_B, SERVE_LP + SERVE_G + 1,
+                                  torch.float32, dev)
+        logits, caches = model.forward(params, prompts, caches=caches)
+        mat = [logits[:, -1]]
+        del logits
+        for i in range(SERVE_G - 1):
+            logits, caches = model.decode_step(
+                params, res.tokens[:, i:i + 1], caches, SERVE_LP + i)
+            mat.append(logits)
+    got, want = torch.stack(res.logits, 1), torch.stack(mat, 1)
+    mla_err = float((got - want).abs().max())
+    torch.testing.assert_close(
+        got, want, **MODEL_TOL,
+        msg=lambda m: f"{DEEPSEEK} absorbed vs materialised decode: {m}")
+    del got, want, mat, caches
+    caps = [layers.moe_groups(cfg, SERVE_B * n)[2] for n in (SERVE_LP, 1)]
+    log(f"phase 18 {serve_line(DEEPSEEK, res, first.prefill_s)}; einsum "
+        f"dispatch on every MoE call (C={caps[0]} in prefill, {caps[1]} in "
+        f"decode); absorbed "
+        f"vs materialised MLA decode (prefill and {SERVE_G - 1} steps) max "
+        f"abs {mla_err:.3e} (tol {MODEL_TOL}); sample ids "
+        f"{res.tokens[0, :8].tolist()}")
+    decode_profile(model, params, prompts, DEEPSEEK)
+    del first, res
+
+    # ---------------------- one MLA and one MoE layer, card against the CPU
+    x = torch.randn((1, LAYER_T, cfg.d_model), generator=gen, device=dev)
+    p_mla = transformer.layer(params["layers"], 0)["attn"]
+    mla_err = layer_vs_cpu(
+        lambda p, x: layers.mla_apply(
+            p, x, cfg, positions=torch.arange(LAYER_T, device=x.device))[0],
+        p_mla, tree_to(p_mla, "cpu"), x, f"{DEEPSEEK} MLA layer 0")
+    p_moe = transformer.layer(params["moe_layers"], 0)["moe"]
+    t0 = time.perf_counter()
+    p_cpu = tree_to(p_moe, "cpu")
+    t_copy = time.perf_counter() - t0
+    errs = {name: layer_vs_cpu(lambda p, x, fn=fn: fn(p, x, cfg), p_moe,
+                               p_cpu, x, f"{DEEPSEEK} MoE layer 1 {name}")
+            for name, fn in (("einsum", layers.moe_einsum_apply),
+                             ("ep", layers.moe_ep_apply))}
+    del p_cpu
+    log(f"phase 18 {DEEPSEEK} on the card vs the CPU at T={LAYER_T}: MLA "
+        f"layer 0 max abs {mla_err:.3e}; MoE layer 1, top-k experts "
+        f"identical, max abs {errs} (tol {LAYER_TOL}); the MoE layer's "
+        f"copy to the host {t_copy:.1f} s, both forms on both devices "
+        f"{time.perf_counter() - t0 - t_copy:.1f} s")
+    del params, p_mla, p_moe, x
+    free_model(f"phase 18 {DEEPSEEK}")
+
+
+def moe_path(dev) -> tuple[int, dict]:
+    """Phase 18: the MoE and MLA half of the decoder family.  Returns the
+    flash launches of granite's prefill step and the kernel's record at
+    its shape."""
+    t_phase = time.perf_counter()
+    launches, flash = granite_path(dev)
+    deepseek_path(dev)
+    log(f"phase 18 wall {time.perf_counter() - t_phase:.3f} s")
+    return launches, flash
 
 
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
@@ -2762,6 +3260,19 @@ def main() -> int:
                                  f"{step['ms']} ms is below its bound "
                                  f"{step['bound_ms']}")
     train_path(dev, card)
+    granite_launches, at_granite = moe_path(dev)
+    fa = next(r for r in records if r["name"] == "flash_attention_hm")
+    fa["launches_by_path"] = {f"{LLAMA} make_prefill_step": fa["launches"],
+                              f"{GRANITE} make_prefill_step":
+                                  granite_launches}
+    fa["launches"] += granite_launches
+    fa["at_granite"] = {
+        **at_granite, "launches": granite_launches,
+        "max_abs_err": path_err["flash_attention_hm_granite"]}
+    if not at_granite["bound_ms"] <= at_granite["ms"]:
+        raise AssertionError(f"flash_attention_hm at {GRANITE}'s shape: "
+                             f"{at_granite['ms']} ms is below its bound "
+                             f"{at_granite['bound_ms']}")
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")
     log(json.dumps({"kernels": records}))

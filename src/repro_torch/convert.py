@@ -184,7 +184,8 @@ def params_from_reference(tree, cfg, device=None):
     ``tree`` is the reference's parameter pytree (nested dicts) with NumPy
     leaves, ``cfg`` its ``ArchConfig``.  Every leaf must have the shape and
     dtype that the port's ``init`` gives that config (its main dtype read
-    from the embedding), else ``ValueError`` names it.  The reference's
+    from the embedding; an MoE router is f32 whatever that dtype, as the
+    reference draws it), else ``ValueError`` names it.  The reference's
     ``[in, out]`` weight layout (``x @ W``) is kept, so the transfer is one
     to one.  Tensors go to ``device`` (default CUDA).
     """

@@ -1,9 +1,10 @@
 """Model zoo: a uniform functional interface over the ported families.
 
-The port of the reference package's ``models/__init__.py``.  The dense
-decoder (GQA), RWKV6 and hybrid (Mamba2 + shared attention) families are
-built; every other family raises ``NotImplementedError`` naming its
-ROADMAP item.  Parameters are dicts of tensors mirroring the reference's
+The port of the reference package's ``models/__init__.py``.  The decoder
+(GQA or MLA attention, dense or MoE layers), RWKV6 and hybrid (Mamba2 +
+shared attention) families are built; the encoder-decoder and
+multimodal families raise ``NotImplementedError`` naming their ROADMAP
+item.  Parameters are dicts of tensors mirroring the reference's
 pytree; ``init`` and ``init_cache`` place them on CUDA unless
 the caller passes ``device="cpu"``.
 """
@@ -38,9 +39,6 @@ def _family_module(cfg: ArchConfig):
         return hybrid
     if cfg.family == "ssm" and cfg.rwkv is not None:
         return rwkv
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA are not ported yet: ROADMAP Queue 1 #9")
     return transformer
 
 

@@ -1,13 +1,15 @@
-"""Core layers: RMSNorm, RoPE, chunked (flash-style) attention, GQA and the
-SwiGLU/GELU MLPs, as torch functions over dicts of tensors.
+"""Core layers: RMSNorm, RoPE, chunked (flash-style) attention, GQA, MLA,
+the SwiGLU/GELU MLPs and MoE, as torch functions over dicts of tensors.
 
-The port of the reference package's ``models/layers.py`` (dense path).
-Attention with ``attn_impl="cuda"`` goes through the hand-written flash
-kernel where the reference took its Pallas kernel; otherwise it runs the
-reference's plain algorithms as torch ops: an online-softmax chunked
-loop, or direct softmax for decode and small sequences.  MLA and MoE are
-not ported yet; the reference's sharding constraints have no counterpart
-on one card.
+The port of the reference package's ``models/layers.py``.  Attention
+with ``attn_impl="cuda"`` goes through the hand-written flash kernel
+where the reference took its Pallas kernel and the kernel covers the
+shape; otherwise it runs the reference's plain algorithms as torch ops:
+an online-softmax chunked loop, or direct softmax for decode and small
+sequences.  MoE keeps the reference's grouped one-hot einsum dispatch and
+its sort-based expert-parallel form, at one expert shard; the
+reference's sharding constraints and all-to-alls have no counterpart on
+one card.
 """
 from __future__ import annotations
 
@@ -141,8 +143,11 @@ def attention_core(q, k, v, *, causal=True, q_pos=None, kv_pos=None,
         q_pos = torch.arange(Sq, device=q.device)
     if kv_pos is None:
         kv_pos = torch.arange(Skv, device=q.device)
+    # MLA's q/k head dim differs from its v head dim, which the kernel
+    # does not take (the reference's kernel fails there): those shapes
+    # take the plain algorithms, decided before any launch
     if impl == "cuda" and Sq == Skv and causal and window == 0 \
-            and Sq % 128 == 0:
+            and Sq % 128 == 0 and q.shape[-1] == k.shape[-1] == v.shape[-1]:
         from ..kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=True)
     # shapes the kernel doesn't cover take the plain algorithms
@@ -225,6 +230,94 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     return out.reshape(B, S, H * hd) @ p["wo"], new_cache
 
 
+# ---------------------------------------------------------------------- MLA
+def mla_params(gen, cfg: ArchConfig, dtype, device):
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    s = 1.0 / math.sqrt(d)
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    r_q, r_kv = 1.0 / math.sqrt(m.q_lora_rank), 1.0 / math.sqrt(m.kv_lora_rank)
+    return {
+        "wdq": normal(gen, (d, m.q_lora_rank), s, dtype, device),
+        "q_norm": torch.ones((m.q_lora_rank,), dtype=dtype, device=device),
+        "wuq": normal(gen, (m.q_lora_rank, H * qk_dim), r_q, dtype, device),
+        "wdkv": normal(gen, (d, m.kv_lora_rank), s, dtype, device),
+        "wkr": normal(gen, (d, m.qk_rope_head_dim), s, dtype, device),
+        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype, device=device),
+        "wuk": normal(gen, (m.kv_lora_rank, H * m.qk_nope_head_dim), r_kv,
+                      dtype, device),
+        "wuv": normal(gen, (m.kv_lora_rank, H * m.v_head_dim), r_kv, dtype,
+                      device),
+        "wo": normal(gen, (H * m.v_head_dim, d), s, dtype, device),
+    }
+
+
+def mla_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
+              absorbed_decode: bool = True):
+    """DeepSeek MLA.  The decode cache stores only (c_kv, k_rope) —
+    (kv_lora_rank + rope_dim) per token instead of 2·H·hd: dict(c_kv
+    [B,Smax,r], k_rope [B,Smax,rope], len), written in place at ``[len,
+    len+S)``; the returned cache carries the new length.
+
+    absorbed_decode: use the W_uk-absorption identity so decode attends
+    directly against the compressed cache (never materializes K for the
+    whole context), as the reference does by default; otherwise K and V
+    are materialised from the cache for every head.
+    """
+    m, H = cfg.mla, cfg.n_heads
+    B, S, d = x.shape
+    nope, rdim, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    cq = rmsnorm(p["q_norm"], x @ p["wdq"], cfg.rms_eps)
+    q = (cq @ p["wuq"]).reshape(B, S, H, nope + rdim)
+    q_nope = q[..., :nope]
+    q_rope = rope(q[..., nope:], positions, cfg.rope_theta)
+
+    c_kv = x @ p["wdkv"]                                # [B,S,r]
+    k_rope = rope((x @ p["wkr"])[:, :, None, :], positions, cfg.rope_theta)
+    c_kv_n = rmsnorm(p["kv_norm"], c_kv, cfg.rms_eps)
+
+    scale = 1.0 / math.sqrt(nope + rdim)
+    if cache is not None:
+        n = cache["len"]
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        cc[:, n:n + S] = c_kv_n
+        cr[:, n:n + S] = k_rope[:, :, 0, :]
+        new_cache = {**cache, "len": n + S}
+        Sk = cc.shape[1]
+        kv_pos = torch.arange(Sk, device=x.device)
+        kv_pos = torch.where(kv_pos < n + S, kv_pos, -1)
+        if absorbed_decode:
+            # q_c[h] = W_uk[h]^T q_nope[h]  -> score = q_c . c_kv + q_r . k_r
+            wuk = p["wuk"].reshape(m.kv_lora_rank, H, nope)
+            q_c = torch.einsum("bshn,rhn->bshr", q_nope, wuk)
+            s1 = torch.einsum("bshr,bkr->bhsk", q_c.float(), cc.float())
+            s2 = torch.einsum("bshr,bkr->bhsk", q_rope.float(), cr.float())
+            sc = (s1 + s2) * scale
+            mask = (positions[:, None] >= kv_pos[None, :]) & (kv_pos >= 0)
+            sc = torch.where(mask, sc, NEG_INF)
+            pr = torch.softmax(sc, dim=-1)
+            # out[h] = (pr . c_kv) W_uv[h]
+            ctx = torch.einsum("bhsk,bkr->bshr", pr.to(cc.dtype), cc)
+            wuv = p["wuv"].reshape(m.kv_lora_rank, H, vdim)
+            out = torch.einsum("bshr,rhv->bshv", ctx, wuv)
+        else:
+            k_nope = (cc @ p["wuk"]).reshape(B, Sk, H, nope)
+            vfull = (cc @ p["wuv"]).reshape(B, Sk, H, vdim)
+            kfull = torch.cat(
+                [k_nope, cr[:, :, None, :].expand(B, Sk, H, rdim)], dim=-1)
+            qfull = torch.cat([q_nope, q_rope], dim=-1)
+            out = attention_core(qfull, kfull, vfull, causal=True,
+                                 q_pos=positions, kv_pos=kv_pos, scale=scale)
+        return out.reshape(B, S, H * vdim) @ p["wo"], new_cache
+
+    k_nope = (c_kv_n @ p["wuk"]).reshape(B, S, H, nope)
+    vfull = (c_kv_n @ p["wuv"]).reshape(B, S, H, vdim)
+    kfull = torch.cat([k_nope, k_rope.expand(B, S, H, rdim)], dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention_core(qfull, kfull, vfull, causal=True, q_pos=positions,
+                         kv_pos=positions, scale=scale, impl=cfg.attn_impl)
+    return out.reshape(B, S, H * vdim) @ p["wo"], None
+
+
 # ---------------------------------------------------------------------- MLP
 def mlp_params(gen, d: int, ff: int, kind: str, dtype, device):
     s = 1.0 / math.sqrt(d)
@@ -242,3 +335,146 @@ def mlp_apply(p, x, kind: str):
         return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+
+
+# ---------------------------------------------------------------------- MoE
+def moe_params(gen, cfg: ArchConfig, dtype, device):
+    """Routed experts stacked ``[E, ...]``, an optional shared expert, and
+    the router in f32 whatever ``dtype``."""
+    mo, d = cfg.moe, cfg.d_model
+    ff = mo.d_ff_expert
+    s = 1.0 / math.sqrt(d)
+    p = {
+        "router": normal(gen, (d, mo.n_experts), s, torch.float32, device),
+        "wg": normal(gen, (mo.n_experts, d, ff), s, dtype, device),
+        "wu": normal(gen, (mo.n_experts, d, ff), s, dtype, device),
+        "wd": normal(gen, (mo.n_experts, ff, d), 1.0 / math.sqrt(ff), dtype,
+                     device),
+    }
+    if mo.n_shared:
+        p["shared"] = mlp_params(gen, d, ff * mo.n_shared, "swiglu", dtype,
+                                 device)
+    return p
+
+
+def top_k(x: torch.Tensor, k: int):
+    """``lax.top_k``: the ``k`` largest along the last dim, in descending
+    order, ties to the lower index (a stable descending sort; ``torch.topk``
+    promises no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, k: int):
+    """``(gate, idx)``: each token's top-``k`` experts under the f32 router's
+    softmax, the gates renormalised over the ``k`` with a 1e-9 floor."""
+    probs = torch.softmax(xt.float() @ router, dim=-1)
+    gate, idx = top_k(probs, k)
+    return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def moe_groups(cfg: ArchConfig, T: int) -> tuple[int, int, int]:
+    """``(G, Tg, C)`` of :func:`moe_einsum_apply` at ``T`` tokens: its
+    groups, their size (``group_size``, or one group when it does not
+    divide ``T``) and each expert's capacity in a group."""
+    mo = cfg.moe
+    Tg = min(mo.group_size, T)
+    if T % Tg:
+        Tg = T
+    return T // Tg, Tg, max(1, int(Tg * mo.top_k / mo.n_experts
+                                   * mo.capacity_factor))
+
+
+def moe_einsum_apply(p, x, cfg: ArchConfig):
+    """Switch-style capacity dispatch with *grouped* one-hot einsums.
+
+    Tokens are split into ``G`` groups of ``Tg`` (``group_size``, or one
+    group when it does not divide); each expert takes at most ``C`` tokens
+    of a group, in token order, and the rest are dropped.  The dispatch
+    tensor is [G, Tg, E, C].  The combine weights are built in f32 and cast
+    to x's dtype before the combine einsum, as the reference does.
+    """
+    mo = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = mo.n_experts, mo.top_k
+    G, Tg, C = moe_groups(cfg, T)
+    xt = x.reshape(G, Tg, d)
+    gate, idx = route(p["router"], xt, k)                   # [G,Tg,k]
+    onehot = F.one_hot(idx, E)                              # [G,Tg,k,E]
+    pos_all = torch.cumsum(onehot.reshape(G, Tg * k, E), dim=1).reshape(
+        G, Tg, k, E) - 1
+    pos = (pos_all * onehot).sum(-1)                        # [G,Tg,k]
+    keep = pos < C
+    # jax.nn.one_hot gives a zero row for pos >= C; F.one_hot refuses it
+    slot_oh = (F.one_hot(torch.where(keep, pos, 0), C).to(x.dtype)
+               * keep[..., None].to(x.dtype))               # [G,Tg,k,C]
+    disp = torch.einsum("gtke,gtkc->gtec", onehot.to(x.dtype), slot_oh)
+    comb = torch.einsum("gtke,gtk,gtkc->gtec", onehot.float(), gate.float(),
+                        slot_oh.float())
+    xe = torch.einsum("gtd,gtec->gecd", xt, disp)           # [G,E,C,d]
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wg"])) * torch.einsum(
+        "gecd,edf->gecf", xe, p["wu"])
+    ye = torch.einsum("gecf,efd->gecd", h, p["wd"])
+    yt = torch.einsum("gecd,gtec->gtd", ye, comb.to(x.dtype))
+    out = yt.reshape(B, S, d)
+    if mo.n_shared:
+        out = out + mlp_apply(p["shared"], x, "swiglu")
+    return out
+
+
+def moe_ep_apply(p, x, cfg: ArchConfig):
+    """The reference's expert-parallel MoE at one expert shard (its
+    ``ep_axis=None, ep_size=1``), the form ``transformer._moe_dispatch``
+    takes for ``impl="ep_a2a"`` from 8,192 tokens on.
+
+    The send buffer holds ``C = T·k·capacity_factor`` slots: the tokens'
+    top-k slots in token-major order (the reference's stable sort by
+    destination shard is the identity at one shard; slots past ``C`` are
+    dropped), then empty ones.  A stable sort by expert packs each
+    expert's slots, in slot order, into its ``Ce`` rows; the rest are
+    dropped.  After the expert GEMMs each kept slot's output, weighted by
+    its gate, is scatter-added in f32 at its token.  The all-to-alls over
+    ranks wait for the parallel slice.
+    """
+    mo = cfg.moe
+    B, S, d = x.shape
+    T, E, k = B * S, mo.n_experts, mo.top_k
+    dev = x.device
+    xt = x.reshape(T, d)
+    gate, idx = route(p["router"], xt, k)                   # [T, k]
+
+    C = max(1, int(T * k * mo.capacity_factor))
+    sent = min(C, T * k)
+    tok = torch.arange(T, device=dev).repeat_interleave(k)[:sent]
+    ekey = torch.full((C,), E, dtype=torch.int64, device=dev)  # empty: last
+    ekey[:sent] = idx.reshape(-1)[:sent]
+
+    Ce = max(1, int(C / E * mo.capacity_factor))
+    order = torch.argsort(ekey, stable=True)                # jnp.argsort is stable
+    ekey = ekey[order]
+    pos = torch.arange(C, device=dev) - torch.searchsorted(ekey, ekey,
+                                                           right=False)
+    keep = (pos < Ce) & (ekey < E)
+    row = torch.where(keep, ekey * Ce + pos, E * Ce)        # overflow -> drop
+    src = order.clamp(max=sent - 1)       # empty slots land in the dropped row
+    buf = x.new_zeros((E * Ce + 1, d))
+    buf[row] = xt[tok[src]]          # index_put: only the dropped row twice
+    buf = buf[:-1].reshape(E, Ce, d)
+
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"])) * torch.einsum(
+        "ecd,edf->ecf", buf, p["wu"])
+    del buf
+    yb = torch.einsum("ecf,efd->ecd", h, p["wd"]).reshape(E * Ce, d)
+    del h
+
+    # combine at origin: each kept slot's output, gate-weighted, in f32
+    y = torch.where(keep[:, None], yb[torch.where(keep, row, 0)], 0)
+    del yb
+    w = torch.where(keep, gate.reshape(-1)[:sent][src], 0)
+    yt = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add_(
+        0, tok[src], y.float() * w[:, None])
+    out = yt.to(x.dtype).reshape(B, S, d)
+    if mo.n_shared:
+        out = out + mlp_apply(p["shared"], x, "swiglu")
+    return out

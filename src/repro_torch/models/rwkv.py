@@ -15,7 +15,7 @@ from ..compat import default_device
 from .config import ArchConfig
 from .layers import normal
 from .ssm import rwkv6_channel_mix, rwkv6_params, rwkv6_time_mix
-from .transformer import layer, remat, rematerialised, stack, unstack, xent
+from .transformer import layer, remat, rematerialised, stacked, unstack, xent
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -32,9 +32,9 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
         "embed": normal(gen, (cfg.vocab, cfg.d_model), s, dtype, device),
         "ln_in": ones(),
         "ln_f": ones(),
-        "layers": stack([{"ln1": ones(), "ln2": ones(),
-                          "mix": rwkv6_params(gen, cfg, dtype, device)}
-                         for _ in range(cfg.n_layers)]),
+        "layers": stacked(cfg.n_layers, lambda: {
+            "ln1": ones(), "ln2": ones(),
+            "mix": rwkv6_params(gen, cfg, dtype, device)}),
     }
     if not cfg.tie_embeddings:
         p["unembed"] = normal(gen, (cfg.d_model, cfg.vocab), s, dtype, device)

@@ -1,20 +1,24 @@
-"""Decoder-only LM, dense path: the port of the reference package's
-``models/transformer.py`` for the dense (GQA) family.
+"""Decoder-only LM: the port of the reference package's
+``models/transformer.py`` for the dense (GQA), MoE and MLA families.
 
 Layers stay stacked (``[L, ...]`` leading dim) as in the reference, so its
-parameter pytree carries across one to one; the port loops over them in
+parameter pytree carries across one to one: ``layers`` for the dense
+layers and, in an MoE model, ``moe_layers`` for those after its
+``n_dense_layers`` prefix, run in that order.  The port loops over them in
 Python (one ``unbind`` a stacked leaf, so the backward stacks the layers'
 gradients once).  When training (``cfg.remat``, grad mode on and params
 that require grad) each block is rematerialised in the backward, as the
 reference wraps its scanned body in ``jax.checkpoint``.  The unembedding
 keeps the reference's custom VJP, which casts the cotangent to the
-weight's dtype.  Decode caches are updated in place.  MoE, MLA and the
-sharded context wait for their ROADMAP items.
+weight's dtype.  Decode caches (GQA's or MLA's, one group a stack) are
+updated in place.  MoE layers run the reference's no-mesh dispatch; the
+sharded context waits for its ROADMAP item.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -22,15 +26,31 @@ from torch.utils.checkpoint import checkpoint
 from ..compat import default_device
 from ..tree import leaves
 from .config import ArchConfig
-from .layers import gqa_apply, gqa_params, mlp_apply, mlp_params, normal, rmsnorm
+from .layers import (gqa_apply, gqa_params, mla_apply, mla_params,
+                     mlp_apply, mlp_params, moe_einsum_apply, moe_ep_apply,
+                     moe_params, normal, rmsnorm)
+
+#: the reference's literal: without a mesh, an ``ep_a2a`` MoE layer takes
+#: the expert-parallel form from this many tokens on (``MoEConfig``'s
+#: ``ep_threshold`` is read only with a mesh)
+EP_MIN_TOKENS = 8192
 
 
-def stack(layers: list) -> dict:
-    """Stack a list of equally shaped param dicts along a new leading dim."""
-    first = layers[0]
-    return {k: (stack([lp[k] for lp in layers]) if isinstance(v, dict)
-                else torch.stack([lp[k] for lp in layers]))
-            for k, v in first.items()}
+def stacked(n: int, draw: Callable[[], dict]) -> dict:
+    """``n`` layers from ``draw()``, drawn in order and stacked along a new
+    leading dim.  One layer is stacked as a view; more are copied into the
+    stack one at a time, so at most one loose layer lives beside it."""
+    def tmap(fn, *trees):
+        return {k: tmap(fn, *(t[k] for t in trees)) if isinstance(v, dict)
+                else fn(*(t[k] for t in trees)) for k, v in trees[0].items()}
+
+    first = draw()
+    if n == 1:
+        return tmap(lambda t: t.unsqueeze(0), first)
+    out = tmap(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for i in range(n):
+        tmap(lambda o, t: o[i].copy_(t), out, first if i == 0 else draw())
+    return out
 
 
 def layer(tree, i: int):
@@ -90,13 +110,41 @@ def attn_cache(cfg: ArchConfig, n: int, batch: int, max_len: int, dtype,
     return c
 
 
-def _layer_params(gen, cfg: ArchConfig, dtype, device):
-    return {
+def mla_cache(cfg: ArchConfig, n: int, batch: int, max_len: int, dtype,
+              device) -> dict:
+    """``n`` stacked MLA caches of ``max_len`` slots: the normalised
+    latent ``c_kv`` and the roped ``k_rope``; ``len`` is a host integer."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((n, batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((n, batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device),
+            "len": 0}
+
+
+def stacks(cfg: ArchConfig) -> tuple[tuple[str, str, int, bool], ...]:
+    """``(cache group, params key, layers, MoE)`` of each non-empty stack,
+    in the order the forward runs them: the dense layers (an MoE model's
+    ``n_dense_layers`` prefix), then the MoE layers."""
+    n_moe = (cfg.n_layers - cfg.n_dense_layers) if cfg.moe else 0
+    groups = (("dense", "layers", cfg.n_layers - n_moe, False),
+              ("moe", "moe_layers", n_moe, True))
+    return tuple(g for g in groups if g[2])
+
+
+def _layer_params(gen, cfg: ArchConfig, dtype, device, moe_layer: bool):
+    p = {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "attn": gqa_params(gen, cfg, dtype, device),
-        "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device),
+        "attn": (mla_params(gen, cfg, dtype, device) if cfg.mla
+                 else gqa_params(gen, cfg, dtype, device)),
     }
+    if moe_layer:
+        p["moe"] = moe_params(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype,
+                              device)
+    return p
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -112,18 +160,38 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["unembed"] = normal(gen, (cfg.d_model, cfg.vocab), s, dtype,
                                    device)
-    params["layers"] = stack([_layer_params(gen, cfg, dtype, device)
-                              for _ in range(cfg.n_layers)])
+    for _, key, n, moe in stacks(cfg):
+        params[key] = stacked(n, functools.partial(
+            _layer_params, gen, cfg, dtype, device, moe))
     return params
 
 
-def _block(cfg: ArchConfig, p, x, positions, cache, window: int = 0):
+def _block(cfg: ArchConfig, p, x, positions, cache, moe_layer: bool,
+           window: int = 0):
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-    a, new_cache = gqa_apply(p["attn"], h, cfg, positions=positions,
-                             cache=cache, window=window)
+    if cfg.mla:
+        a, new_cache = mla_apply(p["attn"], h, cfg, positions=positions,
+                                 cache=cache)
+    else:
+        a, new_cache = gqa_apply(p["attn"], h, cfg, positions=positions,
+                                 cache=cache, window=window)
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.rms_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.mlp), new_cache
+    if moe_layer:
+        f = _moe_dispatch(cfg, p["moe"], h)
+    else:
+        f = mlp_apply(p["mlp"], h, cfg.mlp)
+    return x + f, new_cache
+
+
+def _moe_dispatch(cfg: ArchConfig, pmoe, h):
+    """The reference's MoE strategy without a mesh: the grouped einsum
+    dispatch, except that ``impl="ep_a2a"`` at ``EP_MIN_TOKENS`` tokens or
+    more takes the expert-parallel form at one shard."""
+    B, S, _ = h.shape
+    if cfg.moe.impl == "ep_a2a" and B * S >= EP_MIN_TOKENS:
+        return moe_ep_apply(pmoe, h, cfg)
+    return moe_einsum_apply(pmoe, h, cfg)
 
 
 def _embed(cfg: ArchConfig, params, tokens, extra_embeds=None):
@@ -180,18 +248,20 @@ def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
     x = _embed(cfg, params, tokens, extra_embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device) + pos_offset
-    c = caches["dense"] if caches is not None else None
-    on = c is None and remat(cfg, params)
-    for i, p in enumerate(unstack(params["layers"], cfg.n_layers)):
-        if on:
-            x = rematerialised(lambda p, x: _block(
-                cfg, p, x, positions, None, window)[0], p, x)
-        else:
-            x, _ = _block(cfg, p, x, positions,
-                          None if c is None else layer_cache(c, i), window)
-    new_caches = None
-    if caches is not None:
-        new_caches = {"dense": {**c, "len": c["len"] + S}}
+    on = caches is None and remat(cfg, params)
+    new_caches = None if caches is None else {}
+    for group, key, n, moe in stacks(cfg):
+        c = None if caches is None else caches[group]
+        block = functools.partial(_block, cfg, moe_layer=moe, window=window)
+        for i, p in enumerate(unstack(params[key], n)):
+            if on:
+                x = rematerialised(lambda p, x, block=block: block(
+                    p, x, positions, None)[0], p, x)
+            else:
+                x, _ = block(p, x, positions,
+                             None if c is None else layer_cache(c, i))
+        if c is not None:
+            new_caches[group] = {**c, "len": c["len"] + S}
     x = rmsnorm(params["ln_f"], x, cfg.rms_eps)
     return _unembed(cfg, params, x), new_caches
 
@@ -229,12 +299,14 @@ def loss_fn(cfg: ArchConfig, params, batch):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None):
-    """Stacked per-layer decode caches (``len`` is a host integer; a ring
-    buffer under a sliding window shorter than ``max_len``), on CUDA
+    """Stacked per-layer decode caches, one group a stack (``dense``,
+    ``moe``): MLA's latent caches, or GQA's (a ring buffer under a sliding
+    window shorter than ``max_len``); ``len`` is a host integer.  On CUDA
     unless the caller passes ``device="cpu"``."""
     device = default_device(device)
-    return {"dense": attn_cache(cfg, cfg.n_layers, batch, max_len, dtype,
-                                device)}
+    make = mla_cache if cfg.mla else attn_cache
+    return {group: make(cfg, n, batch, max_len, dtype, device)
+            for group, _, n, _ in stacks(cfg)}
 
 
 def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int):
