@@ -10,9 +10,10 @@ acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks),
 and the same graph split over ranks by the distributed engine.
 The serving path: llama3.2-1b, rwkv6-1.6b, zamba2-7b (Mamba2 + shared
 attention) and granite-moe-1b-a400m (MoE) at full width and depth, and
-deepseek-v3-671b (MLA, MoE) at full width cut to two layers, f32 weights
-drawn from a seed.  The training path: llama3.2-1b at full width, all
-three dense-or-recurrent families at tiny width.
+deepseek-v3-671b (MLA, MoE) at full width cut to two layers, and
+whisper-tiny (encoder-decoder) at full width and depth, f32 weights drawn
+from a seed.  The training path: llama3.2-1b and whisper-tiny at full
+width, all three dense-or-recurrent families at tiny width.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
@@ -44,7 +45,8 @@ three dense-or-recurrent families at tiny width.
 9. flash attention, WKV6 and SSD against their plain torch versions on
    the card, in f32 and bf16, at the reference's test shapes (SSD's
    state handoff too) and at the serving path's shapes (flash's at
-   llama3.2-1b's and granite-moe-1b-a400m's prefill layers; WKV6's also with
+   llama3.2-1b's, granite-moe-1b-a400m's and whisper-tiny's prefill
+   layers; WKV6's also with
    decays of exactly 0 and 1, a sequence shorter than its stretch and
    D=128);
 10. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
@@ -154,7 +156,23 @@ three dense-or-recurrent families at tiny width.
     Incremental decode is not held against the full forward here: at
     capacity factor 1.25 the reference drops tokens, so the two differ by
     its own semantics (the CPU tests hold that at drop-free smoke
-    configs).
+    configs);
+19. the encoder-decoder family, after phase 18: whisper-tiny (4 encoder
+    and 4 decoder layers, d 384, 6 heads, 1,536 frame embeddings drawn
+    from a seed) at full width and depth.  ``make_prefill_step`` at B=2,
+    4,096 text tokens plus the frames through the flash kernel against
+    the same step on the plain attention: one launch a decoder layer
+    (its causal self-attention, counted into the kernel's record), none
+    in the encoder (bidirectional) or the cross-attention (no ``impl``,
+    as in the reference), and a profile; the serve loop (B=4, prompt
+    512, 32 tokens: encode once, the prompt decoded into the caches,
+    decode steps given ``enc_out``) with a profile of a decode step and
+    teacher-forced decode against the full ``decode``; the flash kernel
+    timed at its shape (G = 1) against its bound and
+    ``scaled_dot_product_attention``; one encoder and one decoder layer
+    on the card against the CPU; three ``make_train_step`` steps at full
+    width (B=2, 512 text tokens, the frames from ``SyntheticLM``) on the
+    plain route, with the peak memory.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -252,15 +270,18 @@ PREFILL_B, PREFILL_S = 2, 4096          # make_prefill_step, flash on path
 SERVE_B, SERVE_LP, SERVE_G = 4, 512, 32  # the serve loop
 #: flash cases (B, H, Hkv, Sq, Skv, D, causal): tests/test_kernels.py's
 #: shapes, then llama3.2-1b's prefill layer, a non-causal Sq != Skv, a
-#: length that is not a multiple of the kernel's 64-row tiles, and
-#: granite-moe-1b-a400m's prefill layer
+#: length that is not a multiple of the kernel's 64-row tiles,
+#: granite-moe-1b-a400m's prefill layer and whisper-tiny's decoder
+#: self-attention in its prefill step (G = 1)
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True), (2, 4, 2, 256, 256, 64, True),
     (1, 3, 1, 384, 384, 128, True), (1, 2, 2, 128, 256, 64, False),
     (2, 32, 8, 4096, 4096, 64, True), (2, 32, 8, 512, 2048, 64, False),
     (1, 2, 1, 100, 100, 64, True), (2, 16, 8, 4096, 4096, 64, True),
+    (2, 6, 6, 4096, 4096, 64, True),
 ]
-FLASH_PATH, FLASH_GRANITE = FLASH_CASES[4], FLASH_CASES[7]
+FLASH_PATH, FLASH_GRANITE, FLASH_WHISPER = (FLASH_CASES[4], FLASH_CASES[7],
+                                            FLASH_CASES[8])
 #: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
 #: shapes, then rwkv6-1.6b's serve prefill with and without a state and
 #: its make_prefill_step, then a sequence shorter than the kernel's
@@ -1446,6 +1467,8 @@ def check_kernels(dev) -> dict:
                 path_err["flash_attention_hm"] = err
             if case == FLASH_GRANITE and dtype == torch.float32:
                 path_err["flash_attention_hm_granite"] = err
+            if case == FLASH_WHISPER and dtype == torch.float32:
+                path_err["flash_attention_hm_whisper"] = err
         log(f"phase 9 flash_attention {tname} == plain version at "
             f"{len(FLASH_CASES)} shapes (B,H,Hkv,Sq,Skv,D,causal) "
             f"{FLASH_CASES}: max abs err {[f'{e:.3e}' for e in errs]} "
@@ -2521,10 +2544,10 @@ def layer_vs_cpu(fn, p, p_cpu, x, label: str) -> float:
     return err
 
 
-def flash_at_granite(dev, cfg) -> dict:
-    """The flash kernel at granite's prefill-step shape (f32, causal):
-    its time, the plain version's, ``scaled_dot_product_attention``'s and
-    the bound."""
+def flash_at(dev, cfg, label: str) -> dict:
+    """The flash kernel at a model's prefill-step shape (f32, causal): its
+    time (warm and with L2 flushed), the plain version's,
+    ``scaled_dot_product_attention``'s and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -2537,22 +2560,27 @@ def flash_at_granite(dev, cfg) -> dict:
     q = torch.randn((B, H, S, D), generator=gen, device=dev)
     k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev)
             for _ in range(2))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
     rec = {
         "shape": f"q {list(q.shape)} k/v {list(k.shape)} f32 causal",
         "ms": event_ms(lambda: flash_attention_hm(q, k, v), reps=7, inner=5),
+        "ms_cold_l2": event_ms(lambda: flash_attention_hm(q, k, v),
+                               flush=flush, reps=7, inner=5),
         "plain_ms": event_ms(lambda: flash_attention_hm_torch(q, k, v),
                              reps=5, inner=2),
         "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps=7, inner=5),
     }
+    del flush
     flops = 4 * B * H * D * S * (S + 1) // 2
     nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
     ops_s, bytes_s = flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     rec.update(flops=flops, bytes=nbytes,
                bound_ms=max(ops_s, bytes_s) * 1e3,
                bound_by="operations" if ops_s >= bytes_s else "bytes")
-    log(f"phase 18 flash_attention_hm at {GRANITE}'s shape ({rec['shape']}):"
-        f" kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+    log(f"{label} flash_attention_hm at {cfg.name}'s shape ({rec['shape']}):"
+        f" kernel {rec['ms']:.4f} ms (cold L2 {rec['ms_cold_l2']:.4f} ms), "
+        f"plain {rec['plain_ms']:.4f} ms, "
         f"scaled_dot_product_attention f32 {rec['library_ms']:.4f} ms, "
         f"bound {rec['bound_ms']:.4f} ms ({flops} flop at 165 TFLOP/s "
         f"(3xTF32): {ops_s * 1e3:.4f} ms; {nbytes} bytes at 3.35 TB/s: "
@@ -2639,7 +2667,7 @@ def granite_path(dev) -> tuple[int, dict]:
         f"{T / t_cuda_warm:.0f} tok/s")
     del tokens
     free_model(f"phase 18 {GRANITE} prefill step")
-    flash = flash_at_granite(dev, cfg)
+    flash = flash_at(dev, cfg, "phase 18")
 
     # ------------------------------------ serve B=4, prompt 512, 32 tokens
     prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
@@ -2817,6 +2845,236 @@ def moe_path(dev) -> tuple[int, dict]:
     launches, flash = granite_path(dev)
     deepseek_path(dev)
     log(f"phase 18 wall {time.perf_counter() - t_phase:.3f} s")
+    return launches, flash
+
+
+# --------------------------------------- phase 19: the encoder-decoder
+WHISPER = "whisper-tiny"
+WHISPER_PARAMS = 56_347_392
+#: frame embeddings drawn from a seed at the data stream's scale
+FRAME_SCALE = 0.02
+#: make_train_step at full width: B, text tokens, steps (1,536 frames)
+WHISPER_TRAIN_B, WHISPER_TRAIN_S, WHISPER_TRAIN_STEPS = 2, 512, 3
+
+
+@contextlib.contextmanager
+def flash_launches_in(module, name: str, record: list):
+    """``module.name`` wrapped to append the flash kernel's launches made
+    inside each of its calls to ``record`` while inside."""
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+
+    saved = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        before = flash_attention_hm.launches
+        try:
+            return saved(*args, **kwargs)
+        finally:
+            record.append(flash_attention_hm.launches - before)
+
+    with swapped(module, name, wrapped):
+        yield
+
+
+def whisper_path(dev) -> tuple[int, dict]:
+    """Phase 19, whisper-tiny at full width and depth: the prefill step
+    through the flash kernel (the decoder's causal self-attention only),
+    the serve loop (encode once, the prompt decoded into the caches, decode
+    steps given ``enc_out``), the kernel at its shape, one encoder and one
+    decoder layer on the card against the CPU, and three train steps on
+    the plain route.  Returns the flash launches of one
+    ``make_prefill_step`` call (counts set to 0 just before it) and the
+    kernel's record at its shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import build_model, encdec
+    from repro_torch.models.transformer import layer
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER)
+    if cfg.n_params() != WHISPER_PARAMS:
+        raise AssertionError(f"{WHISPER}: {cfg.n_params()} parameters")
+    cfg_cuda, cfg_xla = (cfg.replace(attn_impl=a) for a in ("cuda", "xla"))
+    m_cuda, m_xla = build_model(cfg_cuda), build_model(cfg_xla)
+    gen = torch.Generator(dev).manual_seed(0)
+    params = m_cuda.init(gen, torch.float32, dev)
+    n_params = sum(t.numel() for t in leaves(params))   # norms, positions
+
+    def frames(b):
+        return FRAME_SCALE * torch.randn((b, cfg.frontend_seq, cfg.d_model),
+                                         generator=gen, device=dev)
+
+    # --------------------------- (a) make_prefill_step B=2 S=4096 + frames
+    batch = {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                     device=dev, generator=gen),
+             "extra_embeds": frames(PREFILL_B)}
+    step_cuda, step_xla = make_prefill_step(m_cuda), make_prefill_step(m_xla)
+    enc_l, cross_l = [], []
+    flash_attention_hm.launches = 0
+    with plain_refused(fa_mod, "flash_attention_hm_torch"), \
+            flash_launches_in(encdec, "encode", enc_l), \
+            flash_launches_in(encdec, "_cross_attend", cross_l):
+        got, t_cuda = timed(lambda: step_cuda(params, batch))
+    launches = flash_attention_hm.launches
+    if launches != cfg.n_layers or any(enc_l) or any(cross_l) \
+            or (len(enc_l), len(cross_l)) != (1, cfg.n_layers):
+        raise AssertionError(
+            f"{launches} flash launches in a prefill step of {cfg.n_layers} "
+            f"decoder layers; in the encoder {enc_l}, in the "
+            f"cross-attentions {cross_l}: want one a decoder layer, none "
+            f"elsewhere")
+    want, t_xla = timed(lambda: step_xla(params, batch))
+    if got.shape != (PREFILL_B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(
+        got, want, **MODEL_TOL,
+        msg=lambda m: f"{WHISPER} prefill cuda vs xla: {m}")
+    del got, want
+    _, t_cuda_warm = timed(lambda: step_cuda(params, batch))
+    _, t_xla_warm = timed(lambda: step_xla(params, batch))
+    wall, busy, count, top = device_profile(lambda: step_cuda(params, batch))
+    log(f"profile {WHISPER} make_prefill_step cuda: wall {wall * 1e3:.1f} "
+        f"ms under the profiler, device busy {busy * 1e3:.1f} ms "
+        f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
+        f"{top}")
+    T = PREFILL_B * PREFILL_S
+    log(f"phase 19 {WHISPER} ({cfg.n_encoder_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{n_params} f32 parameters) make_prefill_step B={PREFILL_B} "
+        f"S={PREFILL_S} text + {cfg.frontend_seq} frames: {launches} flash "
+        f"launches (the decoder's self-attention; encoder {sum(enc_l)}, "
+        f"cross-attention {sum(cross_l)}); last-position logits cuda vs xla "
+        f"max abs {err:.3e} (tol {MODEL_TOL}); step {t_cuda_warm * 1e3:.1f} "
+        f"ms cuda, {t_xla_warm * 1e3:.1f} ms xla (first runs "
+        f"{t_cuda * 1e3:.1f} / {t_xla * 1e3:.1f} ms), "
+        f"{T / t_cuda_warm:.0f} text tok/s")
+    del batch
+    free_model(f"phase 19 {WHISPER} prefill step")
+
+    # ---------------- (b) serve B=4, prompt 512, 32 tokens, given the frames
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
+                            generator=gen)
+    fr = frames(SERVE_B)
+    first = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                  prompts=prompts, frames=fr)
+    flash_attention_hm.launches = 0
+    res = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                prompts=prompts, frames=fr)
+    serve_launches = flash_attention_hm.launches
+    if not torch.equal(res.tokens, first.tokens):
+        raise AssertionError("two serve runs of one prompt differ")
+    check_generated(res, cfg.vocab, WHISPER)
+    enc = encdec.encode(cfg_xla, params, fr)
+    seq = torch.cat([prompts, res.tokens[:, :-1]], dim=1)
+    full, _ = encdec.decode(cfg_xla, params, seq, enc)
+    want = full[:, SERVE_LP - 1:]
+    del full
+    got = torch.stack(res.logits, dim=1)
+    tf_err = float((got - want).abs().max())
+    torch.testing.assert_close(
+        got, want, **MODEL_TOL,
+        msg=lambda m: f"{WHISPER} teacher-forced: {m}")
+    del got, want
+    caches = m_cuda.init_cache(SERVE_B, SERVE_LP + SERVE_G + 1, torch.float32,
+                               dev)
+    logits, caches = encdec.decode(cfg_cuda, params, prompts, enc,
+                                   caches=caches)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+    m_cuda.decode_step(params, tok, caches, SERVE_LP, enc_out=enc)  # warm
+    wall, busy, count, top = device_profile(
+        lambda: m_cuda.decode_step(params, tok, caches, SERVE_LP,
+                                   enc_out=enc))
+    log(f"profile {WHISPER} decode step (B={SERVE_B}, cache "
+        f"{SERVE_LP + SERVE_G + 1}, {cfg.frontend_seq} frames): wall "
+        f"{wall * 1e3:.2f} ms under the profiler, device busy "
+        f"{busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) in {count} kernels;"
+        f" top (name, ms): {top}")
+    log(f"phase 19 {serve_line(WHISPER, res, first.prefill_s)} (prefill = "
+        f"encode {cfg.frontend_seq} frames + decode the prompt into the "
+        f"caches); {count} kernels a decode step, device busy "
+        f"{100 * busy / wall:.1f}%; {serve_launches} flash launches (a "
+        f"prompt of {SERVE_LP} into {SERVE_LP + SERVE_G + 1} slots is not "
+        f"Sq == Skv); teacher-forced decode vs full decode max abs "
+        f"{tf_err:.3e} (tol {MODEL_TOL}); sample ids "
+        f"{res.tokens[0, :8].tolist()}")
+    del first, res, caches, enc, fr, prompts
+    free_model(f"phase 19 {WHISPER} serve")
+
+    # ----------------------------------- (c) the flash kernel at its shape
+    flash = flash_at(dev, cfg, "phase 19")
+
+    # ------------------- (d) one encoder and one decoder layer vs the CPU
+    enc_in = frames(1)
+    x = torch.randn((1, SERVE_LP, cfg.d_model), generator=gen, device=dev)
+    p_enc = layer(params["enc_layers"], 0)
+    p_dec = layer(params["dec_layers"], 0)
+
+    def enc_layer(p, h):
+        return encdec.enc_block(cfg_xla, p, h,
+                                torch.arange(h.shape[1], device=h.device))
+
+    def dec_layer(p, h):
+        return encdec.dec_block(cfg_xla, p, h, enc_in.to(h.device),
+                                torch.arange(h.shape[1], device=h.device))[0]
+
+    enc_err = layer_vs_cpu(enc_layer, p_enc, tree_to(p_enc, "cpu"), enc_in,
+                           f"{WHISPER} encoder layer 0")
+    dec_err = layer_vs_cpu(dec_layer, p_dec, tree_to(p_dec, "cpu"), x,
+                           f"{WHISPER} decoder layer 0")
+    log(f"phase 19 {WHISPER} on the card vs the CPU: encoder layer 0 at "
+        f"{cfg.frontend_seq} frames max abs {enc_err:.3e}; decoder layer 0 "
+        f"(self-attention, cross-attention to {cfg.frontend_seq} frames, "
+        f"MLP) at {SERVE_LP} tokens max abs {dec_err:.3e} (tol {LAYER_TOL})")
+    del enc_in, x, p_enc, p_dec
+
+    # -------------- (e) three train steps at full width, the plain route
+    model = build_model(cfg.replace(remat=True))
+    tparams = model.init(torch.Generator(dev).manual_seed(1), torch.float32,
+                         dev)
+    before = [t.clone() for t in leaves(tparams)]
+    opt = AdamWConfig(lr=1e-3, warmup=1, total_steps=WHISPER_TRAIN_STEPS)
+    state = init_state(opt, tparams)
+    data = SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=WHISPER_TRAIN_S,
+        global_batch=WHISPER_TRAIN_B, frontend_seq=cfg.frontend_seq,
+        d_model=cfg.d_model), device=dev)
+    step = make_train_step(model, opt)
+    free_model(f"phase 19 {WHISPER} before training")
+    losses, secs = [], []
+    for i in range(WHISPER_TRAIN_STEPS):
+        b = data.batch_at(i)
+        (tparams, state, loss), t = timed(lambda: step(tparams, state, b))
+        losses.append(float(loss))
+        secs.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    changed = sum(not torch.equal(a, b)
+                  for a, b in zip(before, leaves(tparams), strict=True))
+    if not all(np.isfinite(losses)) or changed != len(before) \
+            or int(state["step"]) != WHISPER_TRAIN_STEPS:
+        raise AssertionError(f"{WHISPER} train steps: losses {losses}, "
+                             f"{changed} of {len(before)} leaves changed, "
+                             f"step {int(state['step'])}")
+    log(f"phase 19 {WHISPER} make_train_step at full width (f32, remat, "
+        f"attn_impl=xla; B={WHISPER_TRAIN_B}, {WHISPER_TRAIN_S} text tokens, "
+        f"{cfg.frontend_seq} bf16 frames from SyntheticLM): losses "
+        f"{[round(v, 4) for v in losses]}, all {changed} leaves changed, "
+        f"step s {[round(v, 4) for v in secs]}, peak device memory {peak} "
+        f"bytes ({peak / 2**30:.2f} GiB)")
+    del params, tparams, before, state, model
+    free_model(f"phase 19 {WHISPER}")
+    log(f"phase 19 wall {time.perf_counter() - t_phase:.3f} s")
     return launches, flash
 
 
@@ -3273,6 +3531,16 @@ def main() -> int:
         raise AssertionError(f"flash_attention_hm at {GRANITE}'s shape: "
                              f"{at_granite['ms']} ms is below its bound "
                              f"{at_granite['bound_ms']}")
+    whisper_launches, at_whisper = whisper_path(dev)
+    fa["launches_by_path"][f"{WHISPER} make_prefill_step"] = whisper_launches
+    fa["launches"] += whisper_launches
+    fa["at_whisper"] = {
+        **at_whisper, "launches": whisper_launches,
+        "max_abs_err": path_err["flash_attention_hm_whisper"]}
+    if not at_whisper["bound_ms"] <= at_whisper["ms"]:
+        raise AssertionError(f"flash_attention_hm at {WHISPER}'s shape: "
+                             f"{at_whisper['ms']} ms is below its bound "
+                             f"{at_whisper['bound_ms']}")
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")
     log(json.dumps({"kernels": records}))

@@ -8,7 +8,12 @@ the same prefill against a cache of ``prompt_len + gen + 1`` slots, the
 same greedy decode loop and the same output line.  ``main`` runs on CUDA
 with ``attn_impl="cuda"``, so the prefill goes through the hand-written
 kernels where the reference's Pallas kernels would run; :func:`serve`
-takes the config and a device, so other callers choose both.
+takes the config and a device, so other callers choose both.  As the
+reference's, the CLI drives text-only archs and refuses an arch with a
+frontend before building it.  :func:`serve` also drives the
+encoder-decoder family from the model's own functions, as the
+reference's tests do: the frames encoded once, the prompt decoded into
+the caches against them, then decode steps given ``enc_out``.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 
 from ..compat import default_device
 from ..configs import get_config
-from ..models import build_model
+from ..models import build_model, encdec
 from ..models.config import ArchConfig
 
 
@@ -41,11 +46,14 @@ def _sync(device: torch.device) -> None:
 def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
           gen: int = 32, device=None, params=None,
           prompts: Optional[torch.Tensor] = None,
+          frames: Optional[torch.Tensor] = None,
           seed: int = 0) -> ServeResult:
     """Prefill ``prompts`` [B, prompt_len] into fresh caches, then decode
     ``gen - 1`` greedy steps.  Without ``params``/``prompts`` they are drawn
     from ``seed`` (f32 params, as the reference's ``serve.py`` inits them).
-    Runs on CUDA unless ``device="cpu"``."""
+    An encoder-decoder arch also takes ``frames`` [B, frontend_seq,
+    d_model] (drawn from ``seed`` when not given); its prefill time
+    includes the encoder's.  Runs on CUDA unless ``device="cpu"``."""
     device = default_device(device)
     model = build_model(cfg)
     if params is None:
@@ -56,12 +64,22 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
             0, cfg.vocab, (batch, prompt_len), device=device,
             generator=torch.Generator(device).manual_seed(seed + 1))
     B, Lp, G = prompts.shape[0], prompts.shape[1], gen
+    if cfg.encdec and frames is None:
+        frames = 0.02 * torch.randn(
+            (B, cfg.frontend_seq, cfg.d_model), device=device,
+            generator=torch.Generator(device).manual_seed(seed + 2))
     caches = model.init_cache(B, Lp + G + 1, torch.float32, device)
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, caches = model.forward(params, prompts, caches=caches,
-                                   pos_offset=0)
+    kw = {}
+    if cfg.encdec:
+        enc = kw["enc_out"] = encdec.encode(cfg, params, frames)
+        logits, caches = encdec.decode(cfg, params, prompts, enc,
+                                       caches=caches)
+    else:
+        logits, caches = model.forward(params, prompts, caches=caches,
+                                       pos_offset=0)
     logits = logits[:, -1].clone()      # frees the [B, Lp, V] logits
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -73,7 +91,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     out, step_logits = [tok], [logits]
     t0 = time.perf_counter()
     for i in range(G - 1):
-        logits, caches = model.decode_step(params, tok, caches, Lp + i)
+        logits, caches = model.decode_step(params, tok, caches, Lp + i,
+                                           **kw)
         tok = pick(logits)
         out.append(tok)
         step_logits.append(logits)
@@ -98,6 +117,9 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.width == "tiny":
         cfg = cfg.smoke_config().replace(remat=False)
+    if cfg.frontend != "none":
+        raise SystemExit("serve.py drives text-only archs; "
+                         "see examples/ for the multimodal path")
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32, as the reference
     res = serve(cfg.replace(attn_impl="cuda"), batch=args.batch,
                 prompt_len=args.prompt_len, gen=args.gen)

@@ -77,9 +77,14 @@ def make_prefill_step(model: Model):
 
 
 def make_decode_step(model: Model):
+    cfg = model.cfg
+
     def decode_step(params, caches, batch):
+        kw = {}
+        if cfg.encdec:
+            kw["enc_out"] = batch["enc_out"]
         return model.decode_step(params, batch["tokens1"], caches,
-                                 batch["pos"])
+                                 batch["pos"], **kw)
     return decode_step
 
 

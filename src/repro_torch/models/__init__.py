@@ -1,10 +1,10 @@
 """Model zoo: a uniform functional interface over the ported families.
 
 The port of the reference package's ``models/__init__.py``.  The decoder
-(GQA or MLA attention, dense or MoE layers), RWKV6 and hybrid (Mamba2 +
-shared attention) families are built; the encoder-decoder and
-multimodal families raise ``NotImplementedError`` naming their ROADMAP
-item.  Parameters are dicts of tensors mirroring the reference's
+(GQA or MLA attention, dense or MoE layers), RWKV6, hybrid (Mamba2 +
+shared attention) and encoder-decoder (Whisper backbone) families are
+built; the multimodal-prefix family raises ``NotImplementedError`` naming
+its ROADMAP item.  Parameters are dicts of tensors mirroring the reference's
 pytree; ``init`` and ``init_cache`` place them on CUDA unless
 the caller passes ``device="cpu"``.
 """
@@ -15,7 +15,7 @@ from typing import Callable
 
 import torch
 
-from . import hybrid, rwkv, transformer
+from . import encdec, hybrid, rwkv, transformer
 from .config import ArchConfig, MLAConfig, MoEConfig, RWKVConfig, SSMConfig
 
 
@@ -27,14 +27,16 @@ class Model:
     loss: Callable          # (params, batch) -> scalar
     forward: Callable       # (params, tokens, **kw) -> (logits, caches)
     init_cache: Callable    # (batch, max_len, dtype, device) -> caches
-    decode_step: Callable   # (params, tokens1, caches, pos) -> (logits, caches)
+    decode_step: Callable   # (params, tokens1, caches, pos, **kw) -> (logits, caches)
 
 
 def _family_module(cfg: ArchConfig):
-    if cfg.encdec or cfg.frontend != "none":
+    if cfg.encdec:
+        return encdec
+    if cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder and multimodal-stub families "
-            f"are not ported yet: ROADMAP Queue 1 #9")
+            f"{cfg.name}: the multimodal-prefix family is not ported yet: "
+            f"ROADMAP Queue 1 #9")
     if cfg.family == "hybrid":
         return hybrid
     if cfg.family == "ssm" and cfg.rwkv is not None:
@@ -53,8 +55,8 @@ def build_model(cfg: ArchConfig) -> Model:
             cfg, params, tokens, **kw),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, device=None:
             mod.init_cache(cfg, batch, max_len, dtype, device),
-        decode_step=lambda params, t1, caches, pos: mod.decode_step(
-            cfg, params, t1, caches, pos),
+        decode_step=lambda params, t1, caches, pos, **kw: mod.decode_step(
+            cfg, params, t1, caches, pos, **kw),
     )
 
 

@@ -14,7 +14,9 @@ them across, and both packages run the same numpy-seeded tokens.
 * the serve loop's per-step logits and tokens equal the reference's loop;
 * configs, ``convert`` and ``build_model`` carry the reference's data and
   refuse what is not ported (the MoE and MLA families are held in
-  ``tests/test_torch_moe.py``).
+  ``tests/test_torch_moe.py``, the encoder-decoder family in
+  ``tests/test_torch_encdec.py``), and the serve CLI refuses an arch with
+  a frontend as the reference's does.
 """
 from __future__ import annotations
 
@@ -211,11 +213,27 @@ def test_params_from_reference_checks_every_leaf(reference_params):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("whisper-tiny", "#9"), ("internvl2-26b", "#9"),
+    ("internvl2-26b", "#9"),
 ])
 def test_unported_families_name_their_roadmap_item(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         build_model(configs.get_config(name))
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-26b"])
+def test_serve_cli_refuses_frontend_archs_as_the_reference(name):
+    """Both CLIs drive text-only archs: an arch with a frontend is refused
+    with the reference's message, before any model is built."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve as port_serve
+
+    argv = ["--arch", name, "--width", "tiny"]
+    with pytest.raises(SystemExit) as want:
+        ref_serve.main(argv)
+    with pytest.raises(SystemExit) as got:
+        port_serve.main(argv)
+    assert str(got.value) == str(want.value)
+    assert "drives text-only archs" in str(got.value)
 
 
 def test_loss_is_not_ported_yet():
