@@ -10,17 +10,20 @@ acceptance runs (jacobi2d, tiles (2,2,2), T=32, N=512: 1,056,784 tasks),
 and the same graph split over ranks by the distributed engine.
 The serving path: llama3.2-1b, rwkv6-1.6b, zamba2-7b (Mamba2 + shared
 attention) and granite-moe-1b-a400m (MoE) at full width and depth, and
-deepseek-v3-671b (MLA, MoE) at full width cut to two layers, and
-whisper-tiny (encoder-decoder) at full width and depth, f32 weights drawn
-from a seed.  The training path: llama3.2-1b and whisper-tiny at full
-width, all three dense-or-recurrent families at tiny width.
+deepseek-v3-671b (MLA, MoE) at full width cut to two layers,
+whisper-tiny (encoder-decoder) at full width and depth, and internvl2-26b
+(a decoder behind 256 patch embeddings) at full width cut to four layers,
+f32 weights drawn from a seed.  The training path: llama3.2-1b and
+whisper-tiny at full width, all three dense-or-recurrent families at tiny
+width.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
    ``nvcc`` each, all started together, and their times; the HMMA
    (tensor-core) instructions in each library's SASS (``cuobjdump``), which
    the SSD and flash kernels must have; the registers, spills, shared
-   memory and blocks an SM of the three serving kernels, and their grids'
+   memory and blocks an SM of the three serving kernels (flash's f32
+   variants at head dims 64 and 128 both on paths), and their grids'
    waves at the path shapes (none may spill);
 3. ``wavefront_step`` against its plain torch version on the card, byte
    for byte, on every frontier of a real discover sweep, on an edgeless
@@ -45,8 +48,8 @@ width, all three dense-or-recurrent families at tiny width.
 9. flash attention, WKV6 and SSD against their plain torch versions on
    the card, in f32 and bf16, at the reference's test shapes (SSD's
    state handoff too) and at the serving path's shapes (flash's at
-   llama3.2-1b's, granite-moe-1b-a400m's and whisper-tiny's prefill
-   layers; WKV6's also with
+   llama3.2-1b's, granite-moe-1b-a400m's, whisper-tiny's and
+   internvl2-26b's prefill layers; WKV6's also with
    decays of exactly 0 and 1, a sequence shorter than its stretch and
    D=128);
 10. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
@@ -172,7 +175,21 @@ width, all three dense-or-recurrent families at tiny width.
     ``scaled_dot_product_attention``; one encoder and one decoder layer
     on the card against the CPU; three ``make_train_step`` steps at full
     width (B=2, 512 text tokens, the frames from ``SyntheticLM``) on the
-    plain route, with the peak memory.
+    plain route, with the peak memory;
+20. the multimodal-prefix family, after phase 19: internvl2-26b (d 6144,
+    48/8 heads of 128, SwiGLU FF 16,384, vocab 92,553, 256 patch
+    embeddings drawn from a seed) with every width as published and its
+    **depth cut from 48 layers to 4** (2,697,627,648 parameters, 10.8 GB
+    of f32 weights; all 48 would be 79.4 GB).  ``make_prefill_step`` at
+    B=2, S=4096 (``configs.input_specs``: 256 patches and 3,840 text
+    tokens) through the flash kernel's f32 head-dim-128 variant (one
+    launch a layer, counted into its record) against the same step on
+    the plain attention, with a profile and the peak memory; the serve
+    loop (B=4, the patches and a 512-token prompt, 32 tokens) with its
+    decode held teacher-forced against the full forward over prefix,
+    prompt and generated tokens, and a profile of a decode step; the
+    flash kernel timed at its shape (q ``[2,48,4096,128]``, G = 6)
+    against its bound and ``scaled_dot_product_attention``.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -188,8 +205,10 @@ line.
 
     python3 chip_smoke.py --ablation --replaced DIR
 
-also builds the ``wkv6`` kernel of the checkout at ``DIR`` (an earlier
-commit, from ``git archive``) and times it in turns with this one.
+also builds the ``wkv6`` and ``flash_attention`` kernels of the checkout
+at ``DIR`` (an earlier commit, from ``git archive``), times each in turns
+with this one, and compares the two flash libraries' head-dim-64 kernels
+instruction by instruction (``cuobjdump -sass``).
 """
 from __future__ import annotations
 
@@ -198,6 +217,7 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -271,17 +291,18 @@ SERVE_B, SERVE_LP, SERVE_G = 4, 512, 32  # the serve loop
 #: flash cases (B, H, Hkv, Sq, Skv, D, causal): tests/test_kernels.py's
 #: shapes, then llama3.2-1b's prefill layer, a non-causal Sq != Skv, a
 #: length that is not a multiple of the kernel's 64-row tiles,
-#: granite-moe-1b-a400m's prefill layer and whisper-tiny's decoder
-#: self-attention in its prefill step (G = 1)
+#: granite-moe-1b-a400m's prefill layer, whisper-tiny's decoder
+#: self-attention in its prefill step (G = 1) and internvl2-26b's prefill
+#: layer (head dim 128, G = 6)
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True), (2, 4, 2, 256, 256, 64, True),
     (1, 3, 1, 384, 384, 128, True), (1, 2, 2, 128, 256, 64, False),
     (2, 32, 8, 4096, 4096, 64, True), (2, 32, 8, 512, 2048, 64, False),
     (1, 2, 1, 100, 100, 64, True), (2, 16, 8, 4096, 4096, 64, True),
-    (2, 6, 6, 4096, 4096, 64, True),
+    (2, 6, 6, 4096, 4096, 64, True), (2, 48, 8, 4096, 4096, 128, True),
 ]
-FLASH_PATH, FLASH_GRANITE, FLASH_WHISPER = (FLASH_CASES[4], FLASH_CASES[7],
-                                            FLASH_CASES[8])
+FLASH_PATH, FLASH_GRANITE, FLASH_WHISPER, FLASH_INTERNVL = (
+    FLASH_CASES[4], FLASH_CASES[7], FLASH_CASES[8], FLASH_CASES[9])
 #: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
 #: shapes, then rwkv6-1.6b's serve prefill with and without a state and
 #: its make_prefill_step, then a sequence shorter than the kernel's
@@ -1469,6 +1490,8 @@ def check_kernels(dev) -> dict:
                 path_err["flash_attention_hm_granite"] = err
             if case == FLASH_WHISPER and dtype == torch.float32:
                 path_err["flash_attention_hm_whisper"] = err
+            if case == FLASH_INTERNVL and dtype == torch.float32:
+                path_err["flash_attention_hm_internvl"] = err
         log(f"phase 9 flash_attention {tname} == plain version at "
             f"{len(FLASH_CASES)} shapes (B,H,Hkv,Sq,Skv,D,causal) "
             f"{FLASH_CASES}: max abs err {[f'{e:.3e}' for e in errs]} "
@@ -3078,6 +3101,157 @@ def whisper_path(dev) -> tuple[int, dict]:
     return launches, flash
 
 
+# ------------------------------------- phase 20: the multimodal prefix
+VLM = "internvl2-26b"
+#: internvl2-26b with every width as published and its depth cut from 48
+#: layers to 4: 48 layers of f32 weights are 79.4 GB (19,861,260,288
+#: parameters); these four, the untied embedding and unembedding and the
+#: norms are 2,697,627,648 parameters, 10.8 GB
+VLM_CUT = dict(n_layers=4)
+VLM_PARAMS = 2_697_627_648
+
+
+def vlm_path(dev) -> tuple[int, dict]:
+    """Phase 20, internvl2-26b at full width cut to 4 layers: the prefill
+    step through the flash kernel's f32 head-dim-128 variant, its inputs
+    sized by ``configs.input_specs`` (the 256 patch embeddings and the
+    rest of the sequence as text), against the plain route; the serve
+    loop behind the patch prefix, its decode held teacher-forced against
+    the full forward over prefix, prompt and generated tokens; the kernel
+    at its shape.  Returns the flash launches of one ``make_prefill_step``
+    call (counts set to 0 just before it) and the kernel's record at its
+    shape."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec, get_config, input_specs
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    cfg = get_config(VLM).replace(**VLM_CUT)
+    cfg_cuda, cfg_xla = (cfg.replace(attn_impl=a) for a in ("cuda", "xla"))
+    m_cuda, m_xla = build_model(cfg_cuda), build_model(cfg_xla)
+    gen = torch.Generator(dev).manual_seed(0)
+    params, t_init = timed(lambda: m_cuda.init(gen, torch.float32, dev))
+    n_params = sum(t.numel() for t in leaves(params))   # norms too
+    if n_params != VLM_PARAMS:
+        raise AssertionError(f"{VLM} cut to {cfg.n_layers} layers: "
+                             f"{n_params} parameters")
+    P = cfg.frontend_seq
+
+    def prefix(b):
+        return FRAME_SCALE * torch.randn((b, P, cfg.d_model), generator=gen,
+                                         device=dev)
+
+    # ---------- (a) make_prefill_step B=2 S=4096: 256 patches + 3,840 text
+    spec = input_specs(cfg, ShapeSpec("prefill_step", PREFILL_S, PREFILL_B,
+                                      "prefill"), torch.float32)
+    St = spec["tokens"].shape[1]
+    if (St + P, tuple(spec["extra_embeds"].shape)) != (
+            PREFILL_S, (PREFILL_B, P, cfg.d_model)):
+        raise AssertionError(f"input_specs: {St} text tokens and "
+                             f"{tuple(spec['extra_embeds'].shape)} patches")
+    batch = {"tokens": torch.randint(0, cfg.vocab, tuple(spec["tokens"].shape),
+                                     device=dev, generator=gen),
+             "extra_embeds": prefix(PREFILL_B)}
+    step_cuda, step_xla = make_prefill_step(m_cuda), make_prefill_step(m_xla)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_hm.launches = 0
+    with plain_refused(fa_mod, "flash_attention_hm_torch"):
+        got, t_cuda = timed(lambda: step_cuda(params, batch))
+    launches = flash_attention_hm.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} flash launches in a prefill step "
+                             f"of {cfg.n_layers} layers")
+    want, t_xla = timed(lambda: step_xla(params, batch))
+    if got.shape != (PREFILL_B, cfg.vocab) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"prefill logits {tuple(got.shape)}, finite")
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(
+        got, want, **MODEL_TOL, msg=lambda m: f"{VLM} prefill cuda vs xla: {m}")
+    del got, want
+    _, t_cuda_warm = timed(lambda: step_cuda(params, batch))
+    _, t_xla_warm = timed(lambda: step_xla(params, batch))
+    wall, busy, count, top = device_profile(lambda: step_cuda(params, batch))
+    log(f"profile {VLM} make_prefill_step cuda: wall {wall * 1e3:.1f} ms "
+        f"under the profiler, device busy {busy * 1e3:.1f} ms "
+        f"({100 * busy / wall:.1f}%) in {count} kernels; top (name, ms): "
+        f"{top}")
+    T = PREFILL_B * St
+    log(f"phase 20 {VLM} cut to {cfg.n_layers} of 48 layers (d "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head dim "
+        f"{cfg.hd()}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params} f32 "
+        f"parameters drawn in {t_init:.3f} s) make_prefill_step "
+        f"B={PREFILL_B} S={PREFILL_S} ({P} patches + {St} text tokens, by "
+        f"input_specs): {launches} flash launches (f32, head dim "
+        f"{cfg.hd()}); last-position logits cuda vs xla max abs {err:.3e} "
+        f"(tol {MODEL_TOL}); step {t_cuda_warm * 1e3:.1f} ms cuda, "
+        f"{t_xla_warm * 1e3:.1f} ms xla (first runs {t_cuda * 1e3:.1f} / "
+        f"{t_xla * 1e3:.1f} ms), {T / t_cuda_warm:.0f} text tok/s; peak "
+        f"device memory of the first cuda step {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    del batch
+    free_model(f"phase 20 {VLM} prefill step")
+
+    # ------- (b) serve B=4, 256 patches + a 512-token prompt, 32 tokens
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP), device=dev,
+                            generator=gen)
+    pre = prefix(SERVE_B)
+    first = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                  prompts=prompts, extra_embeds=pre)
+    res = serve(cfg_cuda, gen=SERVE_G, device=dev, params=params,
+                prompts=prompts, extra_embeds=pre)
+    if not torch.equal(res.tokens, first.tokens):
+        raise AssertionError("two serve runs of one prompt differ")
+    check_generated(res, cfg.vocab, VLM)
+    # decode after the prefix prefill, teacher-forced: the full forward
+    # over prefix, prompt and the generated tokens it was fed
+    seq = torch.cat([prompts, res.tokens[:, :-1]], dim=1)
+    full, _ = m_xla.forward(params, seq, extra_embeds=pre)
+    want = full[:, P + SERVE_LP - 1:]
+    del full
+    got = torch.stack(res.logits, dim=1)
+    if got.shape != want.shape:
+        raise AssertionError(f"decode logits {tuple(got.shape)}, want "
+                             f"{tuple(want.shape)}")
+    tf_err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, **MODEL_TOL,
+                               msg=lambda m: f"{VLM} teacher-forced: {m}")
+    del got, want
+    cache_len = P + SERVE_LP + SERVE_G + 1
+    caches = m_cuda.init_cache(SERVE_B, cache_len, torch.float32, dev)
+    logits, caches = m_cuda.forward(params, prompts, extra_embeds=pre,
+                                    caches=caches)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    del logits
+    pos = P + SERVE_LP
+    m_cuda.decode_step(params, tok, caches, pos)                 # warm
+    wall, busy, count, top = device_profile(
+        lambda: m_cuda.decode_step(params, tok, caches, pos))
+    log(f"profile {VLM} decode step (B={SERVE_B}, cache {cache_len}, "
+        f"position {pos}): wall {wall * 1e3:.2f} ms under the profiler, "
+        f"device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}%) in "
+        f"{count} kernels; top (name, ms): {top}")
+    log(f"phase 20 {serve_line(VLM, res, first.prefill_s)} (prefill = "
+        f"{P} patches + the prompt into a cache of {cache_len}; decode step "
+        f"i at position {P} + {SERVE_LP} + i); teacher-forced decode vs the "
+        f"full forward max abs {tf_err:.3e} (tol {MODEL_TOL}); sample ids "
+        f"{res.tokens[0, :8].tolist()}")
+    del first, res, caches, pre, prompts, params
+    free_model(f"phase 20 {VLM}")
+
+    # ------------------------------------ (c) the flash kernel at its shape
+    flash = flash_at(dev, cfg, "phase 20")
+    log(f"phase 20 wall {time.perf_counter() - t_phase:.3f} s")
+    return launches, flash
+
+
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
     """Phase 12 for flash attention: times and bounds at llama3.2-1b's
     prefill-step shape, in f32 as the path runs it (bf16 beside it)."""
@@ -3307,6 +3481,31 @@ def hmma_count(library: Path) -> int:
     return sum("HMMA" in line for line in sass.splitlines())
 
 
+def kernel_sass(library: Path, tag: str) -> list:
+    """The SASS instructions (addresses and encodings dropped) of the
+    kernel whose mangled name holds ``tag``, by cuobjdump."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            out[name] = []
+        elif name is not None and "/*" in line:
+            ins = re.sub(r"/\*.*?\*/", "", line).strip()
+            if ins:
+                out[name].append(ins)
+    found = [v for k, v in out.items() if tag in k]
+    if len(found) != 1:
+        raise AssertionError(f"{library.name}: {len(found)} kernels named "
+                             f"*{tag}*")
+    return found[0]
+
+
 def occupancy_report(libraries: dict) -> dict:
     """Phase 2, continued: the HMMA count of every kernel's SASS (the
     tensor-core kernels must have some) and, for the serving kernels, what
@@ -3334,6 +3533,10 @@ def occupancy_report(libraries: dict) -> dict:
              flash_attention.occupancy(torch.float32, 64),
              {"prefill_step": -(-FLASH_PATH[3] // 64) * FLASH_PATH[0]
               * FLASH_PATH[1]}),
+            ("flash_attention_hm_d128", "flash_attention",
+             flash_attention.occupancy(torch.float32, 128),
+             {"prefill_step": -(-FLASH_INTERNVL[3] // 64)
+              * FLASH_INTERNVL[0] * FLASH_INTERNVL[1]}),
             ("wkv6", "wkv6", wkv6.occupancy(torch.float32, torch.float32, 64),
              {"serve": WKV_PATH[0] * WKV_PATH[2] * wkv_blocks,
               "prefill_step": WKV_PREFILL[0] * WKV_PREFILL[2] * wkv_blocks})):
@@ -3347,8 +3550,8 @@ def occupancy_report(libraries: dict) -> dict:
             f"{occ['threads']} threads a block, {occ['blocks_per_sm']} "
             f"blocks an SM; grid {blocks} blocks on {sms} SMs: {waves} "
             f"waves")
-    extra = {f"{dt} D={d}": flash_attention.occupancy(dt, d)
-             for dt in (torch.float32, torch.bfloat16) for d in (64, 128)}
+    extra = {f"{torch.bfloat16} D={d}": flash_attention.occupancy(
+        torch.bfloat16, d) for d in (64, 128)}
     extra["ssd bf16"] = ssd.occupancy(torch.bfloat16)
     for dt, wdt in ((torch.bfloat16, torch.bfloat16),
                     (torch.bfloat16, torch.float32)):
@@ -3374,10 +3577,11 @@ def ablation(dev, card, replaced: Path | None = None) -> dict:
     ``wkv6`` (f32) at rwkv6-1.6b's serve and prefill-step shapes, each
     built as it is and with each part of ``ABLATIONS`` that it reads
     (``ABLATED``) taken out, timed through their wrappers with CUDA
-    events.  With
-    ``--replaced DIR``, the ``wkv6`` kernel of the checkout at ``DIR`` is
-    built too and timed beside this one, in turns (replaced, this, this,
-    replaced)."""
+    events; flash also in f32 at internvl2-26b's shape (head dim 128).
+    With ``--replaced DIR``, the ``wkv6`` and ``flash_attention`` kernels
+    of the checkout at ``DIR`` are built too and timed beside these, in
+    turns (replaced, this, this, replaced), and the head-dim-64 flash
+    kernels of the two libraries compared in their SASS."""
     import ctypes
     import unittest.mock
 
@@ -3394,7 +3598,8 @@ def ablation(dev, card, replaced: Path | None = None) -> dict:
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         list(ex.map(lambda j: build.compile_library(j[1], ABLATIONS[j[0]]),
                     jobs))
-    old = None
+    out = {"card": card, "ms": {}}
+    old = {}
     if replaced is not None:
         # that checkout's source, and its headers on the include path
         csrc = replaced.resolve() / "src" / "repro_torch" / "csrc"
@@ -3402,7 +3607,19 @@ def ablation(dev, card, replaced: Path | None = None) -> dict:
         flags[flags.index("-I") + 1] = str(csrc)
         with unittest.mock.patch.object(build, "CSRC", csrc), \
                 unittest.mock.patch.object(build, "NVCC_FLAGS", tuple(flags)):
-            old = wk._bind(ctypes.CDLL(str(build.compile_library("wkv6"))))
+            paths = {n: build.compile_library(n)
+                     for n in ("wkv6", "flash_attention")}
+        old = {n: modules[n]._bind(ctypes.CDLL(str(p)))
+               for n, p in paths.items()}
+        same = {}
+        for tag in ("IfLi64E", "I13__nv_bfloat16Li64E"):
+            a, b = (kernel_sass(p, tag) for p in (
+                paths["flash_attention"],
+                build.library_path("flash_attention")))
+            same[tag] = a == b
+        out["flash_d64_sass_identical"] = same
+        log(f"ablation flash_attention head dim 64 SASS identical to "
+            f"{replaced}'s (f32, bf16): {same}")
     gen = torch.Generator(dev).manual_seed(9)
     B, S, H, P, N, chunk, _ = SSD_PREFILL
     ssd_args = (torch.randn((B, S, H, P), generator=gen, device=dev),
@@ -3414,6 +3631,9 @@ def ablation(dev, card, replaced: Path | None = None) -> dict:
     qkv = [torch.randn(shape, generator=gen, device=dev) for shape in
            ((B, H, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
     qkv_bf16 = [t.bfloat16() for t in qkv]
+    B, H, Hkv, Sq, Skv, D, causal = FLASH_INTERNVL
+    qkv_d128 = [torch.randn(shape, generator=gen, device=dev) for shape in
+                ((B, H, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))]
     wkv_serve = wkv6_inputs(dev, gen, WKV_PATH)
     wkv_prefill = wkv6_inputs(dev, gen, WKV_PREFILL)
     cases = {
@@ -3424,16 +3644,18 @@ def ablation(dev, card, replaced: Path | None = None) -> dict:
         "flash_attention_hm bfloat16": (
             "flash_attention",
             lambda: fa.flash_attention_hm(*qkv_bf16, causal=causal)),
+        "flash_attention_hm float32 head dim 128": (
+            "flash_attention",
+            lambda: fa.flash_attention_hm(*qkv_d128, causal=causal)),
         "wkv6 float32 serve": ("wkv6", lambda: wk.wkv6(*wkv_serve)),
         "wkv6 float32 prefill_step": ("wkv6", lambda: wk.wkv6(*wkv_prefill)),
     }
-    out = {"card": card, "ms": {}}
     for key, (name, call) in cases.items():
         variants = [(v, modules[name]._lib(d)) for v, d in ABLATIONS.items()
                     if (v, name) in jobs]
-        if name == "wkv6" and old is not None:
-            variants = [("replaced", old), variants[0], variants[0],
-                        ("replaced", old)] + variants[1:]
+        if name in old and key != "flash_attention_hm bfloat16":
+            variants = [("replaced", old[name]), variants[0], variants[0],
+                        ("replaced", old[name])] + variants[1:]
         for variant, lib in variants:
             with unittest.mock.patch.object(modules[name], "_lib",
                                             lambda: lib):
@@ -3541,6 +3763,17 @@ def main() -> int:
         raise AssertionError(f"flash_attention_hm at {WHISPER}'s shape: "
                              f"{at_whisper['ms']} ms is below its bound "
                              f"{at_whisper['bound_ms']}")
+    vlm_launches, at_internvl = vlm_path(dev)
+    fa["launches_by_path"][f"{VLM} make_prefill_step"] = vlm_launches
+    fa["launches"] += vlm_launches
+    fa["at_internvl"] = {
+        **at_internvl, "launches": vlm_launches,
+        "max_abs_err": path_err["flash_attention_hm_internvl"],
+        **occupancy["flash_attention_hm_d128"]}
+    if not at_internvl["bound_ms"] <= at_internvl["ms"]:
+        raise AssertionError(f"flash_attention_hm at {VLM}'s shape: "
+                             f"{at_internvl['ms']} ms is below its bound "
+                             f"{at_internvl['bound_ms']}")
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")
     log(json.dumps({"kernels": records}))

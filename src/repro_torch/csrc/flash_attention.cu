@@ -31,6 +31,13 @@
 //     never rounded to bf16), moved from the C to the A fragment layout by
 //     quad shuffles and split; V is split in f32 and exact in bf16: three
 //     terms or two.
+// f32 at D = 128 runs two warpgroups on each query tile (256 threads): both
+// compute the tile's scores and softmax in full, and each accumulates P V
+// for its own 64 of the 128 output columns.  With one warpgroup a thread
+// holds the 64 accumulators of 128 columns beside the 32 of the scores,
+// and the variant spilled at the 255-register cap; with two it holds 32.
+// The scores are computed twice, half again the tensor-core work, and the
+// block's 199,680 B of shared memory leave one block an SM, of 8 warps.
 // K of tile i + 1 arrives while tile i's scores, softmax and P V run, V of
 // tile i while its scores do; three barriers a kv tile.  Raw K rows are
 // padded by 16 bytes (8 threads reading 8 rows hit distinct banks) and V
@@ -66,7 +73,6 @@ constexpr int kBQ = 64;           // query rows of a block
 constexpr int kBK = 64;           // keys of a kv tile
 constexpr int kNT = kBK / 8;      // its n-tiles of scores
 constexpr int kWarps = 4;         // a warp owns 16 query rows
-constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -102,17 +108,26 @@ struct Layout {
   }
 };
 
+// Warpgroups a block: two for f32 at D = 128, each holding half of the
+// output's columns (see the note at the top), else one.
+template <typename T, int D>
+struct Groups {
+  static constexpr int kWG = D == 128 && Operand<T>::kSplit ? 2 : 1;
+  static constexpr int kThreads = 32 * kWarps * kWG;
+  static constexpr int kMinBlocks = kWG == 1 ? 2 : 1;
+};
+
 // Rows r0 .. r0+63 of a [rows, D] matrix into dst[64][ld] by 16-byte
 // cp.async; rows at or past `rows` are zero-filled.
-template <typename T, int D>
+template <typename T, int D, int kNThreads>
 __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
                                            int r0, int rows) {
   constexpr int kE = 16 / sizeof(T);
   constexpr int kPerRow = D / kE;
-  static_assert(kBK * kPerRow % kThreads == 0, "whole copies a thread");
+  static_assert(kBK * kPerRow % kNThreads == 0, "whole copies a thread");
 #pragma unroll
-  for (int k = 0; k < kBK * kPerRow / kThreads; ++k) {
-    const int i = threadIdx.x + k * kThreads;
+  for (int k = 0; k < kBK * kPerRow / kNThreads; ++k) {
+    const int i = threadIdx.x + k * kNThreads;
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kE;
     const bool valid = r0 + r < rows;
@@ -146,7 +161,8 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(Groups<T, D>::kThreads,
+                                  Groups<T, D>::kMinBlocks)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int H,
                        int Hkv, int Sq, int Skv, float scale, int causal) {
@@ -155,7 +171,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // a tile's 16-byte chunks as loaded, and its terms as stored
   using Chunk = typename std::conditional<kSplit, float4, uint4>::type;
   using Term = typename std::conditional<kSplit, uint32_t, T>::type;
-  constexpr int kND = D / 8;      // n-tiles of the output
+  constexpr int kWG = Groups<T, D>::kWG;
+  constexpr int kNThreads = Groups<T, D>::kThreads;
+  constexpr int kND = D / 8 / kWG;   // n-tiles of the warpgroup's output
   constexpr int kG = D == 64 ? 8 : 4;   // output n-tiles a P V pass takes
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
@@ -169,7 +187,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * warp;
+  const int row0 = 16 * (kWG == 1 ? warp : warp % kWarps);
+  // the warpgroup's first output column
+  const int c0 = kWG == 1 ? 0 : warp / kWarps * (D / kWG);
   const int bh = blockIdx.y;                     // b * H + h
   const int b = bh / H;
   const int hk = (bh % H) / (H / Hkv);
@@ -181,9 +201,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
   const int ntiles = (kv_end + kBK - 1) / kBK;
-  stage_tile<T, D>(sKraw, L::kLdK, kb, 0, Skv);
+  stage_tile<T, D, kNThreads>(sKraw, L::kLdK, kb, 0, Skv);
   cp_async_commit();
-  for (int i = threadIdx.x; i < kBQ * D / L::kE; i += kThreads) {
+  for (int i = threadIdx.x; i < kBQ * D / L::kE; i += kNThreads) {
     int r, c;
     L::chunk(i, r, c);
     Chunk x = {};
@@ -204,9 +224,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = it * kBK;
     cp_async_wait<0>();
     __syncthreads();   // K of tile it has landed; tile it - 1 is done
-    stage_tile<T, D>(sV, L::kLdV, vb, k0, Skv);
+    stage_tile<T, D, kNThreads>(sV, L::kLdV, vb, k0, Skv);
     cp_async_commit();
-    for (int i = threadIdx.x; i < kBK * D / L::kE; i += kThreads) {
+    for (int i = threadIdx.x; i < kBK * D / L::kE; i += kNThreads) {
       int r, c;
       L::chunk(i, r, c);
       put_terms(sKb, sKs, L::core_at(r, c),
@@ -214,7 +234,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     fence_proxy_async();
     __syncthreads();   // K's (and Q's) terms are visible to the tensor cores
-    if (it + 1 < ntiles) stage_tile<T, D>(sKraw, L::kLdK, kb, k0 + kBK, Skv);
+    if (it + 1 < ntiles)
+      stage_tile<T, D, kNThreads>(sKraw, L::kLdK, kb, k0 + kBK, Skv);
     cp_async_commit();
 
     // S = Q K^T on wgmma: three TF32 terms (small ones first) for f32, one
@@ -308,7 +329,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       uint32_t ab[4], as[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) split(pa[e], ab[e], as[e]);
-      const T* vr = sV + (8 * kk + t) * L::kLdV + g;
+      const T* vr = sV + (8 * kk + t) * L::kLdV + c0 + g;
 #pragma unroll
       for (int j0 = 0; j0 < kND; j0 += kG) {   // kG n-tiles at a time
         uint32_t bb[kG][2], bs[kG][2];
@@ -328,7 +349,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* ob = out + static_cast<size_t>(bh) * Sq * D;
 #pragma unroll
   for (int j = 0; j < kND; ++j) {
-    const int c = 8 * j + 2 * t;
+    const int c = c0 + 8 * j + 2 * t;
     const float* oj = o[j / kG][j % kG];
     if (qpos_lo < Sq)
       store2(ob + static_cast<size_t>(qpos_lo) * D + c, oj[0] * inv_lo,
@@ -349,7 +370,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<int>(Layout<T, D>::kBytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  kernel<<<grid, kThreads, Layout<T, D>::kBytes, stream>>>(
+  kernel<<<grid, Groups<T, D>::kThreads, Layout<T, D>::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), H, Hkv, Sq, Skv,
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))), causal);
@@ -369,12 +390,13 @@ cudaError_t occupancy(int* out) {
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      kThreads, kBytes);
+                                                      Groups<T, D>::kThreads,
+                                                      kBytes);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
   out[2] = static_cast<int>(kBytes);
   out[3] = blocks;
-  out[4] = kThreads;
+  out[4] = Groups<T, D>::kThreads;
   return err;
 }
 

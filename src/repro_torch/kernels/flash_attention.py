@@ -85,16 +85,21 @@ def _check_cuda(q, k, v) -> None:
         raise ValueError("B * H must be at most 65535")
 
 
-@functools.cache
-def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    from .build import load
-
-    lib = load("flash_attention", defines)
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signature of its ``flash_attention_hm`` entry
+    point."""
     # every pointer and the stream as c_void_p (ctypes cuts untyped ints)
     lib.flash_attention_hm.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.flash_attention_hm.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    from .build import load
+
+    return _bind(load("flash_attention", defines))
 
 
 def flash_attention_hm(q, k, v, *, causal: bool = True):

@@ -10,10 +10,13 @@ with ``attn_impl="cuda"``, so the prefill goes through the hand-written
 kernels where the reference's Pallas kernels would run; :func:`serve`
 takes the config and a device, so other callers choose both.  As the
 reference's, the CLI drives text-only archs and refuses an arch with a
-frontend before building it.  :func:`serve` also drives the
-encoder-decoder family from the model's own functions, as the
-reference's tests do: the frames encoded once, the prompt decoded into
-the caches against them, then decode steps given ``enc_out``.
+frontend before building it.  :func:`serve` also drives the frontend
+archs from the model's own functions, as the reference's tests do.  The
+encoder-decoder family: the frames encoded once, the prompt decoded into
+the caches against them, then decode steps given ``enc_out``.  The
+multimodal-prefix family: the ``extra_embeds`` prefix and the prompt
+prefilled into the caches in one forward, then decode steps at positions
+counted from the prefix's start.
 """
 from __future__ import annotations
 
@@ -47,13 +50,18 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
           gen: int = 32, device=None, params=None,
           prompts: Optional[torch.Tensor] = None,
           frames: Optional[torch.Tensor] = None,
+          extra_embeds: Optional[torch.Tensor] = None,
           seed: int = 0) -> ServeResult:
     """Prefill ``prompts`` [B, prompt_len] into fresh caches, then decode
     ``gen - 1`` greedy steps.  Without ``params``/``prompts`` they are drawn
     from ``seed`` (f32 params, as the reference's ``serve.py`` inits them).
     An encoder-decoder arch also takes ``frames`` [B, frontend_seq,
-    d_model] (drawn from ``seed`` when not given); its prefill time
-    includes the encoder's.  Runs on CUDA unless ``device="cpu"``."""
+    d_model], and a multimodal-prefix arch ``extra_embeds`` of that shape
+    (either drawn from ``seed`` when not given).  ``extra_embeds`` [B, P,
+    d_model] goes in front of the prompt: the caches hold ``P + prompt_len
+    + gen`` positions and decode step ``i`` runs at position ``P +
+    prompt_len + i``.  The prefill time includes the encoder's or the
+    prefix's.  Runs on CUDA unless ``device="cpu"``."""
     device = default_device(device)
     model = build_model(cfg)
     if params is None:
@@ -64,11 +72,21 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
             0, cfg.vocab, (batch, prompt_len), device=device,
             generator=torch.Generator(device).manual_seed(seed + 1))
     B, Lp, G = prompts.shape[0], prompts.shape[1], gen
-    if cfg.encdec and frames is None:
-        frames = 0.02 * torch.randn(
+
+    def drawn_prefix():
+        return 0.02 * torch.randn(
             (B, cfg.frontend_seq, cfg.d_model), device=device,
             generator=torch.Generator(device).manual_seed(seed + 2))
-    caches = model.init_cache(B, Lp + G + 1, torch.float32, device)
+
+    if cfg.encdec:
+        if extra_embeds is not None:
+            raise ValueError(f"{cfg.name} takes frames, not extra_embeds")
+        if frames is None:
+            frames = drawn_prefix()
+    elif cfg.frontend != "none" and extra_embeds is None:
+        extra_embeds = drawn_prefix()
+    P = 0 if extra_embeds is None else extra_embeds.shape[1]
+    caches = model.init_cache(B, P + Lp + G + 1, torch.float32, device)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -78,8 +96,9 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
         logits, caches = encdec.decode(cfg, params, prompts, enc,
                                        caches=caches)
     else:
-        logits, caches = model.forward(params, prompts, caches=caches,
-                                       pos_offset=0)
+        logits, caches = model.forward(params, prompts,
+                                       extra_embeds=extra_embeds,
+                                       caches=caches, pos_offset=0)
     logits = logits[:, -1].clone()      # frees the [B, Lp, V] logits
     _sync(device)
     t_prefill = time.perf_counter() - t0
@@ -91,8 +110,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     out, step_logits = [tok], [logits]
     t0 = time.perf_counter()
     for i in range(G - 1):
-        logits, caches = model.decode_step(params, tok, caches, Lp + i,
-                                           **kw)
+        logits, caches = model.decode_step(params, tok, caches,
+                                           P + Lp + i, **kw)
         tok = pick(logits)
         out.append(tok)
         step_logits.append(logits)

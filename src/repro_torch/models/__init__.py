@@ -1,12 +1,13 @@
 """Model zoo: a uniform functional interface over the ported families.
 
-The port of the reference package's ``models/__init__.py``.  The decoder
-(GQA or MLA attention, dense or MoE layers), RWKV6, hybrid (Mamba2 +
-shared attention) and encoder-decoder (Whisper backbone) families are
-built; the multimodal-prefix family raises ``NotImplementedError`` naming
-its ROADMAP item.  Parameters are dicts of tensors mirroring the reference's
-pytree; ``init`` and ``init_cache`` place them on CUDA unless
-the caller passes ``device="cpu"``.
+The port of the reference package's ``models/__init__.py``.  Every family
+is built: the decoder (GQA or MLA attention, dense or MoE layers), RWKV6,
+hybrid (Mamba2 + shared attention) and encoder-decoder (Whisper backbone).
+A multimodal-prefix arch (a frontend, not encoder-decoder) is the decoder,
+as in the reference: its frontend's embeddings come in as the forward's
+``extra_embeds`` prefix.  Parameters are dicts of tensors mirroring the
+reference's pytree; ``init`` and ``init_cache`` place them on CUDA unless
+the caller passes another device (``"cpu"``, or ``"meta"`` for shapes).
 """
 from __future__ import annotations
 
@@ -33,10 +34,6 @@ class Model:
 def _family_module(cfg: ArchConfig):
     if cfg.encdec:
         return encdec
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the multimodal-prefix family is not ported yet: "
-            f"ROADMAP Queue 1 #9")
     if cfg.family == "hybrid":
         return hybrid
     if cfg.family == "ssm" and cfg.rwkv is not None:

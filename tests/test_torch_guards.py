@@ -131,7 +131,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("name,family", [
     ("llama3.2-1b", transformer), ("rwkv6-1.6b", rwkv),
-    ("zamba2-7b", hybrid)])
+    ("zamba2-7b", hybrid), ("internvl2-26b", transformer)])
 def test_model_entry_points_raise_without_cuda(monkeypatch, tmp_path, name,
                                               family):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

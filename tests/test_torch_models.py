@@ -12,11 +12,11 @@ them across, and both packages run the same numpy-seeded tokens.
 * teacher-forced incremental decode equals the full forward (2e-3, as
   ``tests/test_arch_smoke.py``);
 * the serve loop's per-step logits and tokens equal the reference's loop;
-* configs, ``convert`` and ``build_model`` carry the reference's data and
-  refuse what is not ported (the MoE and MLA families are held in
-  ``tests/test_torch_moe.py``, the encoder-decoder family in
-  ``tests/test_torch_encdec.py``), and the serve CLI refuses an arch with
-  a frontend as the reference's does.
+* configs, ``convert`` and ``build_model`` carry the reference's data
+  (the MoE and MLA families are held in ``tests/test_torch_moe.py``, the
+  encoder-decoder family in ``tests/test_torch_encdec.py``, the
+  multimodal-prefix family in ``tests/test_torch_vlm.py``), and the serve
+  CLI refuses an arch with a frontend as the reference's does.
 """
 from __future__ import annotations
 
@@ -210,14 +210,6 @@ def test_params_from_reference_checks_every_leaf(reference_params):
     assert params["embed"].dtype == torch.bfloat16
     assert np.array_equal(params["embed"].view(torch.int16).numpy(),
                           bf["embed"].view(np.int16))
-
-
-@pytest.mark.parametrize("name,item", [
-    ("internvl2-26b", "#9"),
-])
-def test_unported_families_name_their_roadmap_item(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        build_model(configs.get_config(name))
 
 
 @pytest.mark.parametrize("name", ["whisper-tiny", "internvl2-26b"])
