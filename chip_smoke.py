@@ -15,7 +15,7 @@ whisper-tiny (encoder-decoder) at full width and depth, and internvl2-26b
 (a decoder behind 256 patch embeddings) at full width cut to four layers,
 f32 weights drawn from a seed.  The training path: llama3.2-1b and
 whisper-tiny at full width, all three dense-or-recurrent families at tiny
-width.
+width.  Parallelism: four ranks of ``torch.distributed``.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
@@ -190,6 +190,29 @@ width.
     prompt and generated tokens, and a profile of a decode step; the
     flash kernel timed at its shape (q ``[2,48,4096,128]``, G = 6)
     against its bound and ``scaled_dot_product_attention``.
+21. parallelism on ``torch.distributed``, after phase 20: one
+    ``run_ranks`` call of four ranks, NCCL with each rank on its own card
+    when the host has four, else gloo with the four sharing the card and
+    every exchange staged through the host (the transport and the card
+    count logged); the ranks load the flash library built in phase 2.
+    (a) llama3.2-1b at full width and depth, f32, as 4 pipeline stages
+    of 4 layers (``build_schedule(8, 4, tile_m=2)``: 4 tiles of B=2,
+    S=4096, 7 wavefronts; 28 flash launches a rank, counted) against
+    ``sequential_reference`` on the card in the parent (64 launches),
+    within ``MODEL_TOL`` and whether bit-identical; the wall times and
+    each rank's peak memory.  (b) training through the pipeline at
+    ``examples/pipeline_train.py``'s size, 30 SGD steps: the loss below
+    0.7 of its first value, the first step's gradients within 1e-5 of
+    autograd through ``sequential_reference``.  (c)
+    ``compressed_psum_grads`` over a 4-rank data axis on gradients of
+    llama3.2-1b's shapes (1,235,814,400 f32 values a rank): every leaf
+    within the reference test's bound of the exact mean, the wire bytes
+    against an f32 all-reduce's and both times.  (d) one
+    deepseek-v3-671b MoE layer (256 experts top-8, d 7168) at B=2,
+    S=4096 on ``make_debug_mesh(1, 4)``, 64 experts a rank, against the
+    same layer at one shard in the parent: dropped slots of both forms,
+    the outputs within ``test_torch_moe.py``'s tolerance where none
+    drop, the all-to-alls' and the expert GEMMs' times.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -3079,7 +3102,7 @@ def whisper_path(dev) -> tuple[int, dict]:
     for i in range(WHISPER_TRAIN_STEPS):
         b = data.batch_at(i)
         (tparams, state, loss), t = timed(lambda: step(tparams, state, b))
-        losses.append(float(loss))
+        losses.append(float(loss.detach()))
         secs.append(t)
     peak = torch.cuda.max_memory_allocated()
     changed = sum(not torch.equal(a, b)
@@ -3250,6 +3273,484 @@ def vlm_path(dev) -> tuple[int, dict]:
     flash = flash_at(dev, cfg, "phase 20")
     log(f"phase 20 wall {time.perf_counter() - t_phase:.3f} s")
     return launches, flash
+
+
+# ------------------------------------------------- phase 21: parallelism
+PAR_RANKS = 4
+PIPE_MICRO, PIPE_STAGES, PIPE_TILE = 8, 4, 2    # (a), (b): 4 tiles, 7 steps
+PIPE_SEED = 21
+#: (b) at the size of examples/pipeline_train.py: D 64, tiles of 2 x 4
+EXAMPLE_D, EXAMPLE_B_TILE, EXAMPLE_STEPS, EXAMPLE_LR = 64, 4, 30, 0.05
+PIPE_GRAD_TOL = 1e-5                    # of the largest gradient
+GRAD_SEED = 2200                        # (c): rank r's gradients
+#: (c): every leaf of llama3.2-1b's tree: n_params()'s 1,235,746,816 and
+#: its 33 norm vectors of 2,048
+LLAMA_GRAD_VALUES = 1_235_814_400
+EP_B, EP_S = 2, 4096                    # (d): T = 8,192 >= ep_threshold
+EP_SEED = 2300
+EP_TOL = dict(rtol=2e-4, atol=2e-4)     # tests/test_torch_moe.py
+
+
+def llama_stage_params(cfg, dev, first: int, n: int) -> dict:
+    """Layers ``first .. first+n-1`` of llama3.2-1b stacked ``[n, ...]``,
+    f32, each drawn from its own seed (so a rank's stage and the parent's
+    whole stack hold the same weights)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    seeds = iter(range(first, first + n))
+    return transformer.stacked(n, lambda: transformer._layer_params(
+        torch.Generator(dev).manual_seed(PIPE_SEED * 1000 + next(seeds)),
+        cfg, torch.float32, dev, False))
+
+
+def llama_microbatches(cfg, dev):
+    """The embedded hidden states of seeded tokens, tiled
+    ``[tiles, tile_m, S, d]`` (4 x 2 x 4096 x 2048, 268 MB)."""
+    import torch
+
+    from repro_torch.models.layers import normal
+
+    gen = torch.Generator(dev).manual_seed(PIPE_SEED)
+    embed = normal(gen, (cfg.vocab, cfg.d_model), cfg.d_model ** -0.5,
+                   torch.float32, dev)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_MICRO, PREFILL_S),
+                           generator=gen, device=dev)
+    x = embed[tokens]
+    del embed
+    return x.reshape(PIPE_MICRO // PIPE_TILE, PIPE_TILE, PREFILL_S,
+                     cfg.d_model)
+
+
+def llama_stage(cfg, n: int):
+    """One pipeline stage: ``n`` decoder blocks (``transformer._block``)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    def stage(p, x):
+        positions = torch.arange(x.shape[1], device=x.device)
+        for lp in transformer.unstack(p, n):
+            x = transformer._block(cfg, lp, x, positions, None, False)[0]
+        return x
+
+    return stage
+
+
+def example_stage(p, x):
+    """examples/pipeline_train.py's stage: a residual tanh MLP."""
+    import torch
+
+    return x + torch.tanh(x @ p["w1"] + p["b1"]) @ p["w2"]
+
+
+def example_inputs(dev) -> dict:
+    """(b)'s stacked stage params, microbatches and targets, from a NumPy
+    seed."""
+    import torch
+
+    rng = np.random.default_rng(PIPE_SEED)
+    S, D = PIPE_STAGES, EXAMPLE_D
+    shape = (PIPE_MICRO // PIPE_TILE, EXAMPLE_B_TILE * PIPE_TILE, D)
+    arrays = {"w1": 0.3 * rng.standard_normal((S, D, D)),
+              "b1": np.zeros((S, D)),
+              "w2": 0.3 * rng.standard_normal((S, D, D)),
+              "mbs": rng.standard_normal(shape),
+              "targets": rng.standard_normal(shape)}
+    return {k: torch.tensor(v, dtype=torch.float32, device=dev)
+            for k, v in arrays.items()}
+
+
+def deepseek_moe(cfg, dev, experts: range):
+    """One deepseek-v3-671b MoE layer's weights, f32: the routed experts
+    ``experts`` (each drawn from its own seed, so a rank's slice equals the
+    full stack's rows), the router and the shared expert; and the hidden
+    states [EP_B, EP_S, d]."""
+    import torch
+
+    from repro_torch.models.layers import mlp_params, normal
+
+    mo, d = cfg.moe, cfg.d_model
+    ff, n = mo.d_ff_expert, len(experts)
+    p = {"wg": torch.empty((n, d, ff), device=dev),
+         "wu": torch.empty((n, d, ff), device=dev),
+         "wd": torch.empty((n, ff, d), device=dev)}
+    for i, e in enumerate(experts):
+        gen = torch.Generator(dev).manual_seed(EP_SEED + 1 + e)
+        p["wg"][i] = normal(gen, (d, ff), d ** -0.5, torch.float32, dev)
+        p["wu"][i] = normal(gen, (d, ff), d ** -0.5, torch.float32, dev)
+        p["wd"][i] = normal(gen, (ff, d), ff ** -0.5, torch.float32, dev)
+    gen = torch.Generator(dev).manual_seed(EP_SEED)
+    p["router"] = normal(gen, (d, mo.n_experts), d ** -0.5, torch.float32,
+                         dev)
+    p["shared"] = mlp_params(gen, d, ff * mo.n_shared, "swiglu",
+                             torch.float32, dev)
+    h = torch.randn((EP_B, EP_S, d), generator=gen, device=dev)
+    return p, h
+
+
+def warm_collectives(group, device) -> None:
+    """One small call of each collective on ``group``, so that the timed
+    calls find the transport's connections made (NCCL builds a group's
+    communicators, and one for each pair that sends, on first use)."""
+    import torch
+
+    from repro_torch.parallel import collectives as col
+
+    n = group.size
+    x = torch.zeros((n, 8), device=device)
+    col.all_to_all(x, group)
+    col.all_gather(x[0], group)
+    col.psum(x, group)
+    col.pmax(x, group)
+    col.ppermute(x, group, [(i, (i + 1) % n) for i in range(n)])
+
+
+def parallel_rank(device) -> dict:
+    """Phase 21 on one of four ranks: (a) llama3.2-1b's 16 layers as 4
+    pipeline stages through the flash kernel, (b) training through the
+    pipeline, (c) ``compressed_psum_grads`` over llama3.2-1b's gradient
+    shapes, (d) one deepseek-v3-671b MoE layer over 4 expert shards.
+    Loads the flash library the parent built; returns what the parent
+    checks and logs (NumPy arrays, rank 0 the outputs)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.mesh import Mesh, make_debug_mesh
+    from repro_torch.models import build_model, layers, transformer
+    from repro_torch.parallel import compression
+    from repro_torch.parallel.collectives import pmax, psum
+    from repro_torch.parallel.pipeline import (build_schedule,
+                                               make_pipeline_loss,
+                                               pipelined_forward)
+    from repro_torch.tree import leaves, rebuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        lib = build.library_path("flash_attention")
+        if not lib.is_file():
+            raise RuntimeError(f"{lib.name} was not built by the parent")
+        build.load("flash_attention")
+    rank = dist.get_rank()
+    res = {"transport": dist.get_backend(), "device": str(device),
+           "t_in": time.time()}
+
+    def sync():
+        dist.barrier()
+        torch.cuda.synchronize()
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ------------- (a) llama3.2-1b, 16 layers as 4 stages of 4, flash
+    cfg = get_config(LLAMA).replace(attn_impl="cuda")
+    mesh = Mesh((PIPE_STAGES,), ("stage",), device=device)
+    sched = build_schedule(PIPE_MICRO, PIPE_STAGES, PIPE_TILE)
+    s = mesh.group("stage").index
+    per = cfg.n_layers // PIPE_STAGES
+    params = llama_stage_params(cfg, device, s * per, per)
+    mbs = llama_microbatches(cfg, device)
+    stage = llama_stage(cfg, per)
+    warm_collectives(mesh.group("stage"), device)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), plain_refused(fa_mod, "flash_attention_hm_torch"):
+        sync()
+        flash_attention_hm.launches = 0
+        out, t_pipe = timed(lambda: pipelined_forward(stage, params, mbs,
+                                                      sched, mesh))
+        launches = flash_attention_hm.launches
+        sync()
+        _, t_warm = timed(lambda: pipelined_forward(stage, params, mbs,
+                                                    sched, mesh))
+    res["a"] = {"launches": launches, "t": t_pipe, "t_warm": t_warm,
+                "peak": torch.cuda.max_memory_allocated(),
+                "finite": bool(torch.isfinite(out).all()),
+                "shape": tuple(out.shape), "stage": s}
+    if rank == 0:
+        res["a"]["out"] = out.cpu().numpy()
+    del params, mbs, out
+    release()
+
+    # ------------- (b) training through the pipeline, the example's size
+    ex = example_inputs(device)
+    p = {k: ex[k][s].clone().requires_grad_() for k in ("w1", "b1", "w2")}
+    loss_fn = make_pipeline_loss(example_stage, sched, mesh)
+    losses, first = [], None
+    sync()
+    t0 = time.perf_counter()
+    for step in range(EXAMPLE_STEPS):
+        loss = loss_fn(p, ex["mbs"], ex["targets"])
+        grads = torch.autograd.grad(loss, list(p.values()))
+        if first is None:
+            first = {k: g.cpu().numpy() for k, g in zip(p, grads)}
+        with torch.no_grad():
+            for v, g in zip(p.values(), grads):
+                v -= EXAMPLE_LR * g
+        losses.append(float(loss.detach()))
+    sync()
+    res["b"] = {"losses": losses, "grads": first,
+                "t": time.perf_counter() - t0}
+
+    # ------------- (c) int8 gradient exchange over llama3.2-1b's shapes
+    dmesh = Mesh((PAR_RANKS,), ("data",), device=device)
+    group = dmesh.group("data")
+    warm_collectives(group, device)
+    shapes = build_model(get_config(LLAMA)).init(torch.Generator(),
+                                                 torch.float32, "meta")
+    gen = torch.Generator(device).manual_seed(GRAD_SEED + rank)
+    grads = rebuild(shapes, [torch.randn(t.shape, generator=gen,
+                                         device=device)
+                             for t in leaves(shapes)])
+    n_values = sum(g.numel() for g in leaves(grads))
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    got, t_int8 = timed(lambda: compression.compressed_psum_grads(grads,
+                                                                 dmesh))
+    sync()
+    peak_c = torch.cuda.max_memory_allocated()
+    t_f32, worst = 0.0, 0.0
+    with torch.no_grad():
+        for g, r in zip(leaves(grads), leaves(got)):
+            mean, dt = timed(lambda: psum(g, group) / PAR_RANKS)
+            t_f32 += dt
+            bound = 2 * pmax(g.abs().max(), group) / 127 + 1e-6
+            worst = max(worst, float((r - mean).abs().max() / bound))
+            del mean
+    sent, f32_sent = compression.wire_bytes(grads, PAR_RANKS)
+    res["c"] = {"values": n_values, "leaves": len(leaves(grads)),
+                "t_int8": t_int8, "t_f32": t_f32, "worst": worst,
+                "sent": sent, "f32_sent": f32_sent, "peak": peak_c}
+    del grads, got, shapes
+    release()
+
+    # ------------- (d) one deepseek-v3-671b MoE layer, 4 expert shards
+    cfg = get_config(DEEPSEEK)
+    emesh = make_debug_mesh(1, PAR_RANKS, device=device)
+    ep = emesh.group(("data", "model"))
+    for g in (ep, emesh.group("model")):
+        warm_collectives(g, device)
+    e_loc = cfg.moe.n_experts // ep.size
+    pmoe, h = deepseek_moe(cfg, device,
+                           range(ep.index * e_loc, (ep.index + 1) * e_loc))
+    ctx = transformer.ParallelCtx(mesh=emesh, dp_spec="data")
+    stats, a2a = {}, []
+    orig_a2a, orig_ep = layers.all_to_all, transformer.moe_ep_apply
+
+    def timed_a2a(x, group):
+        out, dt = timed(lambda: orig_a2a(x, group))
+        a2a.append(dt)
+        return out
+
+    def with_stats(*args, **kw):
+        return orig_ep(*args, stats=stats, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    with torch.no_grad(), swapped(layers, "all_to_all", timed_a2a), \
+            swapped(transformer, "moe_ep_apply", with_stats):
+        out, t_ep = timed(lambda: transformer._moe_dispatch(cfg, pmoe, h,
+                                                            ctx))
+    peak_d = torch.cuda.max_memory_allocated()
+    TK = EP_B * EP_S // PAR_RANKS * cfg.moe.top_k
+    C = max(1, int(TK / ep.size * cfg.moe.capacity_factor))
+    Ce = max(1, int(ep.size * C / e_loc * cfg.moe.capacity_factor))
+    buf = torch.randn((e_loc, Ce, cfg.d_model), device=device)
+
+    def gemms():
+        hh = torch.nn.functional.silu(torch.einsum(
+            "ecd,edf->ecf", buf, pmoe["wg"])) * torch.einsum(
+            "ecd,edf->ecf", buf, pmoe["wu"])
+        return torch.einsum("ecf,efd->ecd", hh, pmoe["wd"])
+
+    with torch.no_grad():
+        sync()
+        gemm_ms = event_ms(gemms, reps=3, inner=1)
+    res["d"] = {"dropped": stats["dropped"], "a2a_s": a2a, "t": t_ep,
+                "gemm_ms": gemm_ms, "C": C, "Ce": Ce, "e_loc": e_loc,
+                "peak": peak_d, "finite": bool(torch.isfinite(out).all())}
+    if rank == 0:
+        res["d"]["out"] = out.cpu().numpy()
+    res["t_out"] = time.time()
+    return res
+
+
+def parallel_path(dev, card) -> dict:
+    """Phase 21: parallelism on ``torch.distributed``, one ``run_ranks``
+    call of four ranks (NCCL, each rank its own card, when the host has
+    four; else gloo, the four sharing the card with CUDA tensors staged
+    through the host), then the parent's checks: (a) the pipelined
+    prefill against ``sequential_reference`` on one card, (b) the first
+    step's gradients against autograd through ``sequential_reference``
+    and the loss falling, (c) every gradient leaf within the reference
+    test's bound of the exact mean, (d) the expert-parallel layer against
+    the one-shard form.  Returns the flash launches of the pipelined run
+    (the ranks') and of the sequential one."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.mesh import default_transport, run_ranks
+    from repro_torch.models import transformer
+    from repro_torch.parallel.pipeline import sequential_reference
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    transport = default_transport(PAR_RANKS, dev)
+    how = ("each rank its own card" if transport == "nccl" else
+           "the ranks share one device, CUDA tensors staged through the host"
+           if dev.type == "cuda" else "CPU tensors")
+    log(f"phase 21 transport: {transport} ({how}), {PAR_RANKS} ranks, "
+        f"{cards} cards, {card}")
+    t_call = time.time()
+    ranks, t_ranks = timed(lambda: run_ranks(
+        parallel_rank, PAR_RANKS, device=dev.type, backend=transport,
+        timeout=600))
+    if {r["transport"] for r in ranks} != {transport}:
+        raise AssertionError(f"transports {[r['transport'] for r in ranks]}")
+
+    # ---------------------------------------------------- (a) the parent
+    cfg = get_config(LLAMA).replace(attn_impl="cuda")
+    per = cfg.n_layers // PIPE_STAGES
+    firsts = iter(range(0, cfg.n_layers, per))
+    params = transformer.stacked(PIPE_STAGES, lambda: llama_stage_params(
+        cfg, dev, next(firsts), per))
+    mbs = llama_microbatches(cfg, dev)
+    a = [r["a"] for r in ranks]
+    pipelined = sum(x["launches"] for x in a)
+    if [x["launches"] for x in a] != [
+            (PIPE_MICRO // PIPE_TILE + PIPE_STAGES - 1) * per] * PAR_RANKS:
+        raise AssertionError(f"flash launches a rank "
+                             f"{[x['launches'] for x in a]}")
+    with torch.no_grad(), plain_refused(fa_mod, "flash_attention_hm_torch"):
+        flash_attention_hm.launches = 0
+        want, t_seq = timed(lambda: sequential_reference(
+            llama_stage(cfg, per), params, mbs))
+        sequential = flash_attention_hm.launches
+    if sequential != PIPE_MICRO // PIPE_TILE * cfg.n_layers:
+        raise AssertionError(f"{sequential} flash launches in the sequential "
+                             f"reference")
+    got = torch.from_numpy(a[0]["out"]).to(dev)
+    if not all(x["finite"] for x in a) or got.shape != want.shape:
+        raise AssertionError(f"pipelined output {tuple(got.shape)}, finite "
+                             f"{[x['finite'] for x in a]}")
+    gap = float((got - want).abs().max())
+    same = bool(torch.equal(got, want))
+    torch.testing.assert_close(got, want, **MODEL_TOL, msg=lambda m: (
+        f"{LLAMA} pipelined vs sequential_reference: {m}"))
+    del got, want, params, mbs
+    log(f"phase 21 (a) {LLAMA} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"f32) as {PIPE_STAGES} stages of {per} layers, "
+        f"build_schedule({PIPE_MICRO}, {PIPE_STAGES}, tile_m={PIPE_TILE}): "
+        f"{PIPE_MICRO // PIPE_TILE} tiles of B={PIPE_TILE}, S={PREFILL_S}, "
+        f"{PIPE_MICRO // PIPE_TILE + PIPE_STAGES - 1} wavefronts; flash "
+        f"launches {[x['launches'] for x in a]} ({pipelined} in all); "
+        f"pipelined vs sequential_reference (one process, {sequential} "
+        f"launches) max abs {gap:.3e}, bit-identical {same} (tol "
+        f"{MODEL_TOL}); pipelined wall {max(x['t'] for x in a):.3f} s first "
+        f"(counted), {max(x['t_warm'] for x in a):.3f} s warm (slowest "
+        f"rank), sequential {t_seq:.3f} s; peak device memory a rank "
+        f"{[x['peak'] for x in a]} bytes")
+
+    # ---------------------------------------------------- (b) the parent
+    ex = example_inputs(dev)
+    p = {k: ex[k].clone().requires_grad_() for k in ("w1", "b1", "w2")}
+    loss = torch.mean((sequential_reference(example_stage, p, ex["mbs"])
+                       - ex["targets"]) ** 2)
+    want = torch.autograd.grad(loss, list(p.values()))
+    b = [r["b"] for r in ranks]
+    worst = 0.0
+    for k, w in zip(p, want):
+        g = torch.from_numpy(np.stack([x["grads"][k] for x in b])).to(dev)
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+    if not worst <= PIPE_GRAD_TOL:
+        raise AssertionError(f"pipeline gradients {worst:.3e} of the largest "
+                             f"from sequential_reference's")
+    losses = b[0]["losses"]
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"pipeline training loss {losses[0]} -> "
+                             f"{losses[-1]}")
+    log(f"phase 21 (b) training through the pipeline (D {EXAMPLE_D}, "
+        f"{PIPE_MICRO} microbatches in tiles of {PIPE_TILE}, "
+        f"{EXAMPLE_STEPS} SGD steps at lr {EXAMPLE_LR}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; first step's gradients vs "
+        f"autograd through sequential_reference: {worst:.3e} of the largest "
+        f"(tol {PIPE_GRAD_TOL}); {max(x['t'] for x in b):.3f} s")
+
+    # ---------------------------------------------------- (c)
+    c = [r["c"] for r in ranks]
+    if c[0]["values"] != LLAMA_GRAD_VALUES:
+        raise AssertionError(f"{c[0]['values']} gradient values a rank")
+    worst_c = max(x["worst"] for x in c)
+    if not worst_c <= 1.0:
+        raise AssertionError(f"compressed mean off by {worst_c:.3f} of the "
+                             f"bound 2 max|g|/127 + 1e-6")
+    log(f"phase 21 (c) compressed_psum_grads over a {PAR_RANKS}-rank data "
+        f"axis: {c[0]['values']} f32 values in {c[0]['leaves']} leaves a "
+        f"rank ({4 * c[0]['values']} bytes); every leaf within "
+        f"{worst_c:.3f} of the bound 2 max|g|/127 + 1e-6; wire bytes a rank "
+        f"{c[0]['sent']} (int8 + f32 scales) vs {c[0]['f32_sent']} for an "
+        f"f32 ring all-reduce ({c[0]['f32_sent'] / c[0]['sent']:.2f}x); "
+        f"int8 exchange {max(x['t_int8'] for x in c):.3f} s, f32 "
+        f"all-reduce {max(x['t_f32'] for x in c):.3f} s (slowest rank); "
+        f"peak device memory a rank {[x['peak'] for x in c]} bytes")
+
+    # ---------------------------------------------------- (d) the parent
+    cfg = get_config(DEEPSEEK)
+    d = [r["d"] for r in ranks]
+    got = torch.from_numpy(d[0]["out"]).to(dev)
+    pmoe, h = deepseek_moe(cfg, dev, range(cfg.moe.n_experts))
+    stats = {}
+    orig = transformer.moe_ep_apply
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), swapped(transformer, "moe_ep_apply",
+                                  lambda *a, **kw: orig(*a, stats=stats,
+                                                        **kw)):
+        want, t_one = timed(lambda: transformer._moe_dispatch(cfg, pmoe, h))
+    peak_one = torch.cuda.max_memory_allocated()
+    del pmoe, h
+    drops = [x["dropped"] for x in d]
+    if not all(x["finite"] for x in d) or got.shape != want.shape:
+        raise AssertionError(f"EP output {tuple(got.shape)}")
+    gap_d = float((got - want).abs().max())
+    none_dropped = stats["dropped"] == (0, 0) and all(
+        x == (0, 0) for x in drops)
+    if none_dropped:
+        torch.testing.assert_close(got, want, **EP_TOL, msg=lambda m: (
+            f"{DEEPSEEK} MoE layer, 4 expert shards vs one: {m}"))
+    del got, want
+    log(f"phase 21 (d) {DEEPSEEK} MoE layer ({cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k}, d {cfg.d_model}, FF {cfg.moe.d_ff_expert}, "
+        f"f32) at B={EP_B} S={EP_S} on make_debug_mesh(1, {PAR_RANKS}): "
+        f"ep_axis ('data', 'model'), {d[0]['e_loc']} experts and "
+        f"{EP_B * EP_S // PAR_RANKS} tokens a rank, C {d[0]['C']}, Ce "
+        f"{d[0]['Ce']}; dropped slots (send buffer, experts) a rank {drops}, "
+        f"one shard {stats['dropped']}; 4 shards vs one max abs "
+        f"{gap_d:.3e}" + (f" (tol {EP_TOL})" if none_dropped else
+                          " (not compared: slots dropped)")
+        + f"; _moe_dispatch {max(x['t'] for x in d):.3f} s a rank, its "
+        f"{len(d[0]['a2a_s'])} all-to-alls "
+        f"{max(sum(x['a2a_s']) for x in d):.3f} s "
+        f"(slowest rank), the expert GEMMs at a rank's shapes "
+        f"{max(x['gemm_ms'] for x in d):.3f} ms (CUDA events, median of 3); "
+        f"one shard {t_one:.3f} s; peak device memory a rank "
+        f"{[x['peak'] for x in d]} bytes, one shard {peak_one} bytes")
+    log(f"phase 21 wall {time.perf_counter() - t_phase:.3f} s (run_ranks "
+        f"{t_ranks:.3f} s: the ranks entered their function "
+        f"{max(r['t_in'] for r in ranks) - t_call:.3f} s after the call "
+        f"and left it {max(r['t_out'] for r in ranks) - t_call:.3f} s "
+        f"after)")
+    free_model("phase 21")
+    return {"pipelined": pipelined, "sequential": sequential}
 
 
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
@@ -3766,6 +4267,12 @@ def main() -> int:
     vlm_launches, at_internvl = vlm_path(dev)
     fa["launches_by_path"][f"{VLM} make_prefill_step"] = vlm_launches
     fa["launches"] += vlm_launches
+    par = parallel_path(dev, card)
+    fa["launches_by_path"][f"{LLAMA} pipelined_forward, {PAR_RANKS} ranks"
+                           ] = par["pipelined"]
+    fa["launches_by_path"][f"{LLAMA} sequential_reference"] = par[
+        "sequential"]
+    fa["launches"] += par["pipelined"] + par["sequential"]
     fa["at_internvl"] = {
         **at_internvl, "launches": vlm_launches,
         "max_abs_err": path_err["flash_attention_hm_internvl"],

@@ -3,14 +3,16 @@
 The port of the reference package's ``launch/steps.py``.  A train step
 takes ``(params, opt_state, batch)`` and returns ``(params, opt_state,
 loss)`` as the reference's does; the params and the optimizer state are
-updated in place and returned.  The reference's ``ParallelCtx`` has no
-counterpart on one card.
+updated in place and returned.  ``make_prefill_step`` takes the
+reference's ``ParallelCtx``; the decoder family reads its mesh (the other
+families take none yet).
 """
 from __future__ import annotations
 
 import torch
 
 from ..models import Model
+from ..models.transformer import ParallelCtx
 from ..optim import AdamWConfig, apply_updates, init_state
 from ..tree import leaves, rebuild
 
@@ -66,10 +68,13 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     return train_step
 
 
-def make_prefill_step(model: Model):
+def make_prefill_step(model: Model, ctx: ParallelCtx = ParallelCtx()):
+    kw = {} if ctx.mesh is None else {"ctx": ctx}
+
     def prefill_step(params, batch):
         logits, _ = model.forward(params, batch["tokens"],
-                                  extra_embeds=batch.get("extra_embeds"))
+                                  extra_embeds=batch.get("extra_embeds"),
+                                  **kw)
         # serving returns the last-position logits (next-token distribution);
         # a copy, so the [B, S, V] logits are freed on return
         return logits[:, -1].clone()

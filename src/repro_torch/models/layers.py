@@ -7,17 +7,21 @@ where the reference took its Pallas kernel and the kernel covers the
 shape; otherwise it runs the reference's plain algorithms as torch ops:
 an online-softmax chunked loop, or direct softmax for decode and small
 sequences.  MoE keeps the reference's grouped one-hot einsum dispatch and
-its sort-based expert-parallel form, at one expert shard; the
-reference's sharding constraints and all-to-alls have no counterpart on
-one card.
+its sort-based expert-parallel form, with its all-to-alls over a mesh
+axis of ranks (``repro_torch.parallel``); the reference's sharding
+constraints (GSPMD layout hints) are not ported.  Products of two dtypes
+promote to the wider, as ``jnp.matmul`` does (:func:`mm`).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import AxisGroup, all_to_all
+from ..parallel.sharding import P
 from .config import ArchConfig
 
 NEG_INF = -1e30
@@ -25,6 +29,16 @@ ATTN_IMPLS = ("xla", "cuda")
 
 
 # ------------------------------------------------------------------- basics
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with the reference's dtype promotion: operands of two
+    dtypes (f32 frames into bf16 weights) meet in the wider one, as
+    ``jnp.matmul`` promotes them; one dtype takes no copy."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
     x = x.float()
@@ -195,9 +209,9 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     """
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = mm(x, p["wq"])
+    k = mm(x, p["wk"])
+    v = mm(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
@@ -227,7 +241,7 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
         kv_pos = positions
     out = attention_core(q, k, v, causal=causal, q_pos=positions,
                          kv_pos=kv_pos, window=window, impl=cfg.attn_impl)
-    return out.reshape(B, S, H * hd) @ p["wo"], new_cache
+    return mm(out.reshape(B, S, H * hd), p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------- MLA
@@ -332,9 +346,9 @@ def mlp_params(gen, d: int, ff: int, kind: str, dtype, device):
 
 def mlp_apply(p, x, kind: str):
     if kind == "swiglu":
-        return (F.silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return mm(F.silu(mm(x, p["wg"])) * mm(x, p["wu"]), p["wd"])
     # jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ p["w1"], approximate="tanh") @ p["w2"]
+    return mm(F.gelu(mm(x, p["w1"]), approximate="tanh"), p["w2"])
 
 
 # ---------------------------------------------------------------------- MoE
@@ -423,57 +437,129 @@ def moe_einsum_apply(p, x, cfg: ArchConfig):
     return out
 
 
-def moe_ep_apply(p, x, cfg: ArchConfig):
-    """The reference's expert-parallel MoE at one expert shard (its
-    ``ep_axis=None, ep_size=1``), the form ``transformer._moe_dispatch``
-    takes for ``impl="ep_a2a"`` from 8,192 tokens on.
+#: the reference's storage sharding of an MoE layer, in the port's specs
+MOE_PARAM_SPECS = {
+    "router": P(None, None),
+    "wg": P("model", None, None),
+    "wu": P("model", None, None),
+    "wd": P("model", None, None),
+    "shared": {"wg": P(None, "model"), "wu": P(None, "model"),
+               "wd": P("model", None)},
+}
 
-    The send buffer holds ``C = T·k·capacity_factor`` slots: the tokens'
-    top-k slots in token-major order (the reference's stable sort by
-    destination shard is the identity at one shard; slots past ``C`` are
-    dropped), then empty ones.  A stable sort by expert packs each
-    expert's slots, in slot order, into its ``Ce`` rows; the rest are
-    dropped.  After the expert GEMMs each kept slot's output, weighted by
-    its gate, is scatter-added in f32 at its token.  The all-to-alls over
-    ranks wait for the parallel slice.
+
+def moe_ep_apply(p, x, cfg: ArchConfig, *, ep_axis=None, ep_size: int = 1,
+                 mesh=None, stats: Optional[dict] = None):
+    """Expert-parallel MoE with explicit all-to-all (DeepSeek-style EP).
+
+    The reference's general form.  ``x`` is this rank's token block
+    [B_loc, S_loc, d]; the expert weights arrive sliced [E_loc, ...] where
+    E_loc = E / ep_size.  ``ep_axis`` is an :class:`AxisGroup` of
+    ``ep_size`` ranks, or an axis name (or tuple) of ``mesh``; ``None``
+    (and ``ep_size`` 1) runs one shard with no exchange.  Dispatch: local
+    top-k -> stable sort by destination shard -> ``C = T·k/ep_size·cf``
+    slots a destination (the rest dropped) -> all_to_all -> stable sort
+    by local expert into ``Ce = N/E_loc·cf`` rows each (the rest dropped)
+    -> expert GEMMs -> all_to_all back -> each kept slot's output,
+    weighted by its gate, added in f32 at its token, in expert order (at
+    one shard, the order of the expert buffer).
+
+    At one shard the send buffer holds token indices, not rows: the
+    expert buffer is gathered from ``x`` directly, as no exchange needs
+    them.  ``stats``, when given, receives this shard's routing ``idx``
+    [T, k], ``kept`` [T·k] (each token-major slot kept in the send buffer)
+    and ``dropped`` (slots dropped at the send buffer, at this rank's
+    experts).
     """
     mo = cfg.moe
     B, S, d = x.shape
     T, E, k = B * S, mo.n_experts, mo.top_k
+    if E % ep_size:
+        raise ValueError(f"{E} experts do not split over {ep_size} shards")
+    if ep_axis is not None and not isinstance(ep_axis, AxisGroup):
+        ep_axis = mesh.group(ep_axis)
+    if (1 if ep_axis is None else ep_axis.size) != ep_size:
+        raise ValueError(f"ep_size {ep_size} on an axis of "
+                         f"{1 if ep_axis is None else ep_axis.size} ranks")
+    group = ep_axis if ep_size > 1 else None
+    e_loc = E // ep_size
     dev = x.device
     xt = x.reshape(T, d)
     gate, idx = route(p["router"], xt, k)                   # [T, k]
 
-    C = max(1, int(T * k * mo.capacity_factor))
-    sent = min(C, T * k)
-    tok = torch.arange(T, device=dev).repeat_interleave(k)[:sent]
-    ekey = torch.full((C,), E, dtype=torch.int64, device=dev)  # empty: last
-    ekey[:sent] = idx.reshape(-1)[:sent]
+    TK = T * k
+    flat_e = idx.reshape(TK)                                # expert per slot
+    flat_dst = flat_e // e_loc                              # destination
+    # capacity per destination shard
+    C = max(1, int(TK / ep_size * mo.capacity_factor))
+    order = torch.argsort(flat_dst, stable=True)        # as jnp.argsort
+    d_sorted = flat_dst[order]
+    pos = torch.arange(TK, device=dev) - torch.searchsorted(
+        d_sorted, d_sorted, right=False)
+    keep = pos < C
+    n_send = ep_size * C
+    slot = torch.where(keep, d_sorted * C + pos, n_send)    # overflow -> drop
+    # each send slot's token-major slot and local expert (-1: empty)
+    send_j = torch.zeros((n_send + 1,), dtype=torch.int64, device=dev)
+    send_j[slot] = order             # index_put: only the dropped row twice
+    send_e = torch.full((n_send + 1,), -1, dtype=torch.int64, device=dev)
+    send_e[slot] = flat_e[order] % e_loc
+    send_j, send_e = send_j[:-1], send_e[:-1]
+    if group is None:
+        recv_e = send_e
+    else:
+        recv_x = all_to_all(xt[send_j // k].reshape(ep_size, C, d), group
+                            ).reshape(n_send, d)
+        recv_e = all_to_all(send_e.reshape(ep_size, C), group
+                            ).reshape(n_send)
 
-    Ce = max(1, int(C / E * mo.capacity_factor))
-    order = torch.argsort(ekey, stable=True)                # jnp.argsort is stable
-    ekey = ekey[order]
-    pos = torch.arange(C, device=dev) - torch.searchsorted(ekey, ekey,
-                                                           right=False)
-    keep = (pos < Ce) & (ekey < E)
-    row = torch.where(keep, ekey * Ce + pos, E * Ce)        # overflow -> drop
-    src = order.clamp(max=sent - 1)       # empty slots land in the dropped row
-    buf = x.new_zeros((E * Ce + 1, d))
-    buf[row] = xt[tok[src]]          # index_put: only the dropped row twice
-    buf = buf[:-1].reshape(E, Ce, d)
+    # local expert processing: sort received slots by local expert id
+    N = n_send
+    Ce = max(1, int(N / e_loc * mo.capacity_factor))
+    ekey = torch.where(recv_e < 0, e_loc, recv_e)           # empty slots last
+    order2 = torch.argsort(ekey, stable=True)
+    ekey = ekey[order2]
+    pos2 = torch.arange(N, device=dev) - torch.searchsorted(ekey, ekey,
+                                                            right=False)
+    keep2 = (pos2 < Ce) & (ekey < e_loc)
+    row = torch.where(keep2, ekey * Ce + pos2, e_loc * Ce)  # overflow -> drop
+    buf = x.new_zeros((e_loc * Ce + 1, d))
+    if group is None:
+        buf[row] = xt[send_j[order2] // k]
+    else:
+        buf[row] = recv_x[order2]
+        del recv_x
+    buf = buf[:-1].reshape(e_loc, Ce, d)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["wg"])) * torch.einsum(
         "ecd,edf->ecf", buf, p["wu"])
     del buf
-    yb = torch.einsum("ecf,efd->ecd", h, p["wd"]).reshape(E * Ce, d)
+    yb = torch.einsum("ecf,efd->ecd", h, p["wd"]).reshape(e_loc * Ce, d)
     del h
-
-    # combine at origin: each kept slot's output, gate-weighted, in f32
-    y = torch.where(keep[:, None], yb[torch.where(keep, row, 0)], 0)
+    y = torch.where(keep2[:, None], yb[torch.where(keep2, row, 0)], 0)
     del yb
-    w = torch.where(keep, gate.reshape(-1)[:sent][src], 0)
+    if stats is not None:
+        kept = torch.zeros((TK,), dtype=torch.bool, device=dev)
+        kept[order] = keep
+        stats.update(idx=idx, kept=kept, dropped=(
+            int((~keep).sum()), int(((ekey < e_loc) & ~keep2).sum())))
+
+    if group is None:
+        j, live = send_j[order2], keep2
+    else:
+        # un-sort back to recv slot order, then all_to_all back
+        y_recv = torch.zeros_like(y)
+        y_recv[order2] = y
+        y = all_to_all(y_recv.reshape(ep_size, C, d), group).reshape(N, d)
+        del y_recv
+        # at origin, in expert order (empty slots last), as one shard adds
+        eid = torch.where(send_e < 0, E, flat_e[send_j])
+        corder = torch.argsort(eid, stable=True)
+        y, j, live = y[corder], send_j[corder], send_e[corder] >= 0
+    # combine at origin: slot -> (token, gate), in f32
+    w = torch.where(live, gate.reshape(-1)[j], 0)
     yt = torch.zeros((T, d), dtype=torch.float32, device=dev).index_add_(
-        0, tok[src], y.float() * w[:, None])
+        0, j // k, y.float() * w[:, None])
     out = yt.to(x.dtype).reshape(B, S, d)
     if mo.n_shared:
         out = out + mlp_apply(p["shared"], x, "swiglu")

@@ -11,19 +11,26 @@ that require grad) each block is rematerialised in the backward, as the
 reference wraps its scanned body in ``jax.checkpoint``.  The unembedding
 keeps the reference's custom VJP, which casts the cotangent to the
 weight's dtype.  Decode caches (GQA's or MLA's, one group a stack) are
-updated in place.  MoE layers run the reference's no-mesh dispatch; the
-sharded context waits for its ROADMAP item.
+updated in place.  MoE layers take the reference's dispatch: without a
+mesh in the :class:`ParallelCtx`, the grouped einsum or the one-shard
+expert-parallel form; with one, the expert-parallel form over the ranks
+(one process a rank; everything outside the MoE region runs replicated
+on every rank).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import default_device
+from ..parallel.sharding import (P, _axis_size, _fit_axis, gather_shards,
+                                 local_shard)
 from ..tree import leaves
 from .config import ArchConfig
 from .layers import (gqa_apply, gqa_params, mla_apply, mla_params,
@@ -34,6 +41,22 @@ from .layers import (gqa_apply, gqa_params, mla_apply, mla_params,
 #: the expert-parallel form from this many tokens on (``MoEConfig``'s
 #: ``ep_threshold`` is read only with a mesh)
 EP_MIN_TOKENS = 8192
+
+
+@dataclass
+class ParallelCtx:
+    """Parallel execution context for layers needing explicit collectives.
+
+    None mesh => single-device semantics.  When a mesh (the port's
+    :class:`~repro_torch.launch.mesh.Mesh`) is present, MoE layers with
+    impl='ep_a2a' run the expert-parallel region: tokens sharded (batch
+    over ``dp_spec`` x 'model' on sequence), experts sharded over
+    ``ep_axis``, with explicit all-to-all dispatch (DeepSeek-style EP).
+    """
+    ep_axis: Optional[str] = None
+    ep_size: int = 1
+    mesh: Any = None
+    dp_spec: Any = None      # partition spec entry for the batch dim
 
 
 def stacked(n: int, draw: Callable[[], dict]) -> dict:
@@ -167,7 +190,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
 
 def _block(cfg: ArchConfig, p, x, positions, cache, moe_layer: bool,
-           window: int = 0):
+           window: int = 0, ctx: Optional[ParallelCtx] = None):
     h = rmsnorm(p["ln1"], x, cfg.rms_eps)
     if cfg.mla:
         a, new_cache = mla_apply(p["attn"], h, cfg, positions=positions,
@@ -178,20 +201,67 @@ def _block(cfg: ArchConfig, p, x, positions, cache, moe_layer: bool,
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.rms_eps)
     if moe_layer:
-        f = _moe_dispatch(cfg, p["moe"], h)
+        f = _moe_dispatch(cfg, p["moe"], h, ctx)
     else:
         f = mlp_apply(p["mlp"], h, cfg.mlp)
     return x + f, new_cache
 
 
-def _moe_dispatch(cfg: ArchConfig, pmoe, h):
-    """The reference's MoE strategy without a mesh: the grouped einsum
-    dispatch, except that ``impl="ep_a2a"`` at ``EP_MIN_TOKENS`` tokens or
-    more takes the expert-parallel form at one shard."""
+def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
+    """Pick the MoE execution strategy, as the reference does.
+
+    * no mesh: the grouped einsum dispatch, except that ``impl="ep_a2a"``
+      at ``EP_MIN_TOKENS`` tokens or more takes the expert-parallel form
+      at one shard;
+    * impl='ep_a2a' + mesh, at ``cfg.moe.ep_threshold`` tokens or more
+      and a sequence the 'model' axis divides: expert parallelism over
+      ``_fit_axis(("data", "model"), E)``.  This rank takes its token
+      block (batch over ``ctx.dp_spec``, sequence over 'model') and its
+      slice of the routed experts (``pmoe``'s global ``[E, ...]`` stacks
+      sliced by ``local_shard``, or already this rank's ``[E/ep, ...]``
+      as the storage sharding holds them), runs the routed experts only,
+      and the block outputs are all-gathered back to ``[B, S, d]`` on
+      every rank (GSPMD's ``out_specs``).  The shared expert is added
+      outside the region, on every rank.
+    """
     B, S, _ = h.shape
-    if cfg.moe.impl == "ep_a2a" and B * S >= EP_MIN_TOKENS:
-        return moe_ep_apply(pmoe, h, cfg)
-    return moe_einsum_apply(pmoe, h, cfg)
+    T = B * S
+    mesh = None if ctx is None else ctx.mesh
+    use_ep = (cfg.moe.impl == "ep_a2a" and mesh is not None
+              and T >= cfg.moe.ep_threshold
+              and S % mesh.shape["model"] == 0)
+    if not use_ep:
+        if cfg.moe.impl == "ep_a2a" and mesh is None and T >= EP_MIN_TOKENS:
+            # large token count without a mesh: still exercise the EP path
+            return moe_ep_apply(pmoe, h, cfg)
+        return moe_einsum_apply(pmoe, h, cfg)
+
+    # EP spans (data x model) when the expert count divides (DeepSeek: 256
+    # experts over the whole 256-rank pod, one expert per rank); otherwise
+    # just the model axis.  Must match the storage sharding of the experts.
+    E = cfg.moe.n_experts
+    ep_axis = _fit_axis(("data", "model"), E, mesh)
+    if ep_axis is None:
+        return moe_einsum_apply(pmoe, h, cfg)
+    ep_size = _axis_size(mesh, ep_axis)
+    tok_spec = P(ctx.dp_spec, "model", None)
+    routed = {"router": pmoe["router"]}
+    for name in ("wg", "wu", "wd"):
+        w = pmoe[name]
+        if w.shape[0] == E:
+            w = local_shard(w, P(ep_axis, None, None), mesh)
+        elif w.shape[0] != E // ep_size:
+            raise ValueError(f"moe/{name}: {w.shape[0]} experts, neither "
+                             f"{E} nor this rank's {E // ep_size}")
+        routed[name] = w
+    # routed experts only: the shared expert is added outside the region
+    cfg_routed = cfg.replace(moe=dataclasses.replace(cfg.moe, n_shared=0))
+    out = moe_ep_apply(routed, local_shard(h, tok_spec, mesh), cfg_routed,
+                       ep_axis=mesh.group(ep_axis), ep_size=ep_size)
+    out = gather_shards(out, tok_spec, mesh)
+    if cfg.moe.n_shared:
+        out = out + mlp_apply(pmoe["shared"], h, "swiglu")
+    return out
 
 
 def _embed(cfg: ArchConfig, params, tokens, extra_embeds=None):
@@ -237,12 +307,13 @@ def _unembed(cfg: ArchConfig, params, x):
 
 
 def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
-            caches=None, pos_offset: int = 0, window: Optional[int] = None):
+            caches=None, pos_offset: int = 0, window: Optional[int] = None,
+            ctx: Optional[ParallelCtx] = None):
     """Full forward pass. tokens [B,S] -> (logits [B,S_total,V], caches).
 
     caches: the stacked cache dict of :func:`init_cache` for incremental
     decoding, written in place; pos_offset is the absolute position of
-    tokens[:,0].
+    tokens[:,0]; ctx: the :class:`ParallelCtx` its MoE layers dispatch on.
     """
     window = cfg.sliding_window if window is None else window
     x = _embed(cfg, params, tokens, extra_embeds)
@@ -252,7 +323,8 @@ def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
     new_caches = None if caches is None else {}
     for group, key, n, moe in stacks(cfg):
         c = None if caches is None else caches[group]
-        block = functools.partial(_block, cfg, moe_layer=moe, window=window)
+        block = functools.partial(_block, cfg, moe_layer=moe, window=window,
+                                  ctx=ctx)
         for i, p in enumerate(unstack(params[key], n)):
             if on:
                 x = rematerialised(lambda p, x, block=block: block(

@@ -21,17 +21,19 @@ def leaves(tree: Any) -> list:
 def rebuild(tree: Any, values: Iterable) -> Any:
     """``tree``'s structure with its leaves replaced by ``values``, taken
     in the order of :func:`leaves`."""
-    it = iter(values)
+    return _walk(tree, iter(values))
 
-    def walk(t):
-        if isinstance(t, dict):
-            new = {k: walk(t[k]) for k in sorted(t)}
-            return {k: new[k] for k in t}
-        if isinstance(t, tuple):
-            items = [walk(x) for x in t]
-            return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
-        if isinstance(t, list):
-            return [walk(x) for x in t]
-        return None if t is None else next(it)
 
-    return walk(tree)
+def _walk(t: Any, it) -> Any:
+    # module-level, not a closure: a recursive closure is a reference
+    # cycle, which would keep ``values`` (a gradient tree, say) alive
+    # until the cyclic collector runs
+    if isinstance(t, dict):
+        new = {k: _walk(t[k], it) for k in sorted(t)}
+        return {k: new[k] for k in t}
+    if isinstance(t, tuple):
+        items = [_walk(x, it) for x in t]
+        return type(t)(*items) if hasattr(t, "_fields") else tuple(items)
+    if isinstance(t, list):
+        return [_walk(x, it) for x in t]
+    return None if t is None else next(it)

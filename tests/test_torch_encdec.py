@@ -7,7 +7,8 @@ run the same numpy-seeded tokens and frames, the reference's functions
 under ``jax.jit``:
 
 * ``encode`` (and its positions tiled past their rows), ``decode`` and
-  ``forward`` logits on ``"xla"`` within 2e-4;
+  ``forward`` logits on ``"xla"`` within 2e-4; ``encode`` on bf16 params
+  with f32 frames, which promotes to f32 as the reference's ``x @ W``;
 * ``"cuda"`` against the reference's ``"pallas"`` at a text length of
   128 and 256 frames: only the decoder's causal self-attention reaches
   ``kops.flash_attention`` in either package (the encoder's is
@@ -141,6 +142,23 @@ def test_encode_tiles_positions_past_their_rows(ref):
     f = _frames(rcfg, 1, 40, seed=5)
     want = _ref_encode(rcfg)(rp, jnp.asarray(f))
     got = encdec.encode(pcfg, p, _t(f))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
+def test_encode_promotes_f32_frames_into_bf16_weights():
+    """bf16 weights and f32 frames ``[1, 8, 64]``: every product meets in
+    f32, as ``jnp.matmul`` promotes, so the encoder output is f32 and
+    equals the reference's on the same bf16 params."""
+    rcfg = rconfigs.REGISTRY[WHISPER].smoke_config()
+    rparams = jax.jit(lambda k: ref_build(rcfg).init(k, jnp.bfloat16))(
+        jax.random.PRNGKey(0))
+    params, pcfg = convert.params_from_reference(
+        jax.tree.map(np.asarray, rparams), rcfg, device="cpu")
+    assert params["enc_layers"]["attn"]["wq"].dtype == torch.bfloat16
+    f = _frames(rcfg, 1, 8, seed=4)
+    want = _ref_encode(rcfg)(rparams, jnp.asarray(f))
+    got = encdec.encode(pcfg, params, _t(f))
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
 
 

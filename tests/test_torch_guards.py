@@ -6,7 +6,9 @@
 * The entry points run on CUDA unless the caller passes ``device="cpu"``:
   on a host without CUDA they raise instead of running on the CPU
   (serving and training alike: ``init_all``, ``SyntheticLM``, the
-  ``TrainDriver`` through its ``init_fn``, ``launch.train.main``).
+  ``TrainDriver`` through its ``init_fn``, ``launch.train.main``; the
+  meshes and ``run_ranks`` of the parallel slice, whose production mesh
+  refuses a world of another size).
 * The kernel wrappers run their plain versions only for CPU tensors: any
   other tensor launches the kernel or raises, never falls back.
 * The CUDA build refuses loudly without ``nvcc``.
@@ -36,6 +38,7 @@ from repro_torch.kernels import ssd as sd  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.kernels.stencils import SPECS, handwritten_solve  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.steps import init_all, make_train_step  # noqa: E402
@@ -179,6 +182,34 @@ def test_model_entry_points_raise_without_cuda(monkeypatch, tmp_path, name,
 
 def _refuse(*args, **kwargs):
     raise AssertionError("a plain version was reached")
+
+
+def _never(device):
+    raise AssertionError("a rank ran without CUDA")
+
+
+def test_meshes_and_run_ranks_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (mesh_mod.make_debug_mesh, mesh_mod.make_production_mesh,
+                 lambda **kw: mesh_mod.Mesh((1,), ("stage",), **kw),
+                 lambda **kw: mesh_mod.run_ranks(_never, 2, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(device="cuda")
+    one = mesh_mod.make_debug_mesh(device="cpu")
+    assert (one.shape, one.size, one.coords) == (
+        {"data": 1, "model": 1}, 1, {"data": 0, "model": 0})
+    with pytest.raises(ValueError, match="needs 4 ranks; the world has 1"):
+        mesh_mod.make_debug_mesh(2, 2, device="cpu")
+
+
+@pytest.mark.parametrize("multi_pod,n", [(False, 256), (True, 512)])
+def test_production_mesh_refuses_a_world_of_four(monkeypatch, multi_pod, n):
+    monkeypatch.setattr(mesh_mod, "_world", lambda: (4, 0))
+    with pytest.raises(ValueError, match=f"needs {n} ranks; the world has "
+                                         f"4"):
+        mesh_mod.make_production_mesh(multi_pod=multi_pod, device="cpu")
 
 
 def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors(
