@@ -213,6 +213,19 @@ width.  Parallelism: four ranks of ``torch.distributed``.
     same layer at one shard in the parent: dropped slots of both forms,
     the outputs within ``test_torch_moe.py``'s tolerance where none
     drop, the all-to-alls' and the expert GEMMs' times.
+22. what a step costs, after phase 21 (``launch/op_cost.py``, the
+    counterpart of the reference's ``hlo_cost.py``): llama3.2-1b's,
+    rwkv6-1.6b's and zamba2-7b's ``make_prefill_step`` at B=2, S=4096
+    through flash, WKV6 and SSD, llama3.2-1b's full-width train step
+    (phase 17's) and granite-moe-1b-a400m's decode step, each counted once
+    on the card under ``op_cost`` and walked on ``meta`` at the same
+    shapes, the FLOPs, bytes, launches and kernel calls equal; a line a
+    step with its FLOPs, ms, TFLOP/s against the f32 SIMT peak, bytes a
+    second against 3.35 TB/s, the profiler's kernels beside the counted
+    launches and the walk's peak beside ``max_memory_allocated``; then
+    ``launch/dryrun.py``'s cells of ``--all --single-pod`` on ``meta``,
+    less the two whose attention is a Python loop of minutes
+    (``DRYRUN_LEFT_OUT``), none failing.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -2597,7 +2610,8 @@ def flash_at(dev, cfg, label: str) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention_hm,
+    from repro_torch.kernels.flash_attention import (cost,
+                                                     flash_attention_hm,
                                                      flash_attention_hm_torch)
 
     gen = torch.Generator(dev).manual_seed(8)
@@ -2618,8 +2632,8 @@ def flash_at(dev, cfg, label: str) -> dict:
             q, k, v, is_causal=True, enable_gqa=True), reps=7, inner=5),
     }
     del flush
-    flops = 4 * B * H * D * S * (S + 1) // 2
-    nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+    work = cost(q.shape, k.shape)                   # causal, f32
+    flops, nbytes = work["flops"], work["bytes"]
     ops_s, bytes_s = flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     rec.update(flops=flops, bytes=nbytes,
                bound_ms=max(ops_s, bytes_s) * 1e3,
@@ -3753,13 +3767,177 @@ def parallel_path(dev, card) -> dict:
     return {"pipelined": pipelined, "sequential": sequential}
 
 
+# ------------------------------------------------ phase 22: what a step costs
+#: granite-moe-1b-a400m's decode step in phase 22: B, and the cache's
+#: slots with the serve loop's prompt in it
+COST_DECODE_B, COST_DECODE_SLOTS = SERVE_B, SERVE_LP + SERVE_G
+COST_REPS = 3                           # timed runs of each step
+#: cells of ``dryrun --all --single-pod`` phase 22 leaves out: their
+#: attention runs the plain chunked loop on the card's route too
+#: (deepseek-v3-671b's MLA head dims, zamba2-7b's sliding window), minutes
+#: of Python a cell on the host (PERF.md, PR 30)
+DRYRUN_LEFT_OUT = {("deepseek-v3-671b", "prefill_32k"),
+                   ("zamba2-7b", "prefill_32k")}
+#: what the card's count and the meta walk must agree on
+COUNTED = ("flops", "bytes_accessed", "launches", "kernels")
+
+
+def cost_steps():
+    """Phase 22's steps: ``(label, build)``, where ``build(dev)`` returns
+    ``(step, args)`` with f32 weights drawn from a seed (on ``meta``:
+    their shapes), as phases 10-13, 17 and 18 run them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_train_step)
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, init_state
+
+    def ints(shape, high, dev, gen):
+        if dev.type == "meta":
+            return torch.empty(shape, dtype=torch.int64, device=dev)
+        return torch.randint(0, high, shape, device=dev, generator=gen)
+
+    def model_on(name, dev, **kw):
+        cfg = get_config(name).replace(**kw)
+        model = build_model(cfg)
+        gen = torch.Generator(dev if dev.type != "meta" else "cpu")
+        params = model.init(gen.manual_seed(0), torch.float32, dev)
+        return cfg, model, gen, params
+
+    def prefill(name):
+        def build(dev):
+            cfg, model, gen, params = model_on(name, dev, attn_impl="cuda")
+            tokens = ints((PREFILL_B, PREFILL_S), cfg.vocab, dev, gen)
+            return make_prefill_step(model), (params, {"tokens": tokens})
+        return (f"{name} make_prefill_step B={PREFILL_B} S={PREFILL_S} "
+                f"cuda", build)
+
+    def train(dev):
+        cfg, model, gen, params = model_on(LLAMA, dev)
+        opt = AdamWConfig(lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+        tokens = ints((TRAIN_B, TRAIN_S), cfg.vocab, dev, gen)
+        return make_train_step(model, opt), (
+            params, init_state(opt, params),
+            {"tokens": tokens, "labels": tokens})
+
+    def decode(dev):
+        cfg, model, gen, params = model_on(GRANITE, dev)
+        caches = model.init_cache(COST_DECODE_B, COST_DECODE_SLOTS,
+                                  torch.float32, dev)
+        for group in caches.values():
+            group["len"] = SERVE_LP
+        batch = {"tokens1": ints((COST_DECODE_B, 1), cfg.vocab, dev, gen),
+                 "pos": torch.full((), SERVE_LP, dtype=torch.int32,
+                                   device=dev)}
+        return make_decode_step(model), (params, caches, batch)
+
+    return [prefill(LLAMA), prefill(RWKV), prefill(ZAMBA),
+            (f"{LLAMA} make_train_step B={TRAIN_B} S={TRAIN_S} xla", train),
+            (f"{GRANITE} make_decode_step B={COST_DECODE_B}, cache "
+             f"{COST_DECODE_SLOTS} at {SERVE_LP}", decode)]
+
+
+def cost_path(dev, card) -> None:
+    """Phase 22, after phase 21: what a step costs.  (a) Each of five steps
+    (llama3.2-1b's, rwkv6-1.6b's and zamba2-7b's ``make_prefill_step`` at
+    B=2 S=4096 through flash, WKV6 and SSD; llama3.2-1b's full-width train
+    step, phase 17's; granite-moe-1b-a400m's decode step) is counted once
+    on the card under ``launch.op_cost`` and walked on ``meta`` at the
+    same shapes: FLOPs, bytes, launches and kernel calls must be equal.
+    (b) One line a step: its FLOPs and measured ms (timed apart from the
+    counted run, which the dispatch mode slows), the achieved TFLOP/s
+    against the f32 SIMT peak, bytes a second against 3.35 TB/s, the
+    profiler's CUDA kernels beside the counted launches, and the walk's
+    peak beside ``torch.cuda.max_memory_allocated()``.  (c)
+    ``python -m repro_torch.launch.dryrun --all --single-pod``'s cells in
+    process on ``meta``, less :data:`DRYRUN_LEFT_OUT`: none may fail."""
+    import torch
+
+    from repro_torch.configs import REGISTRY, SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.op_cost import op_cost
+
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+    for label, build in cost_steps():
+        step, args = build(dev)
+        step(*args)                                   # warm
+        torch.cuda.synchronize()
+        on_card = op_cost(step, *args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = sorted(timed(lambda: step(*args))[1]
+                         for _ in range(COST_REPS))
+        max_alloc = torch.cuda.max_memory_allocated()
+        _, _, kernels, _ = device_profile(lambda: step(*args))
+        del step, args
+        free_model(f"phase 22 {label}")
+        step, args = build(meta)
+        walked = op_cost(step, *args)
+        del step, args
+        if any(on_card[k] != walked[k] for k in COUNTED):
+            card_ops = collections.Counter(on_card["ops"])
+            meta_ops = collections.Counter(walked["ops"])
+            raise AssertionError(
+                f"phase 22 {label}: the card counts "
+                f"{ {k: on_card[k] for k in COUNTED} }, the meta walk "
+                f"{ {k: walked[k] for k in COUNTED} }; ops only on the card "
+                f"{dict(card_ops - meta_ops)}, only on meta "
+                f"{dict(meta_ops - card_ops)}")
+        ms = statistics.median(seconds) * 1e3
+        flops, nbytes = walked["flops"], walked["bytes_accessed"]
+        rate, bps = flops / ms / 1e9, nbytes / ms / 1e9   # TFLOP/s, TB/s
+        log(f"phase 22 {label}: card count = meta walk: {flops} flop, "
+            f"{nbytes} bytes, {walked['launches']} launches, kernels "
+            f"{walked['kernels']}; {ms:.3f} ms a step (median of "
+            f"{COST_REPS}: {[round(t * 1e3, 3) for t in seconds]}): "
+            f"{rate:.3f} TFLOP/s, {rate * 1e12 / F32_FLOP_PER_S:.1%} of the "
+            f"f32 SIMT peak 67 TFLOP/s; {bps:.3f} TB/s, "
+            f"{bps * 1e12 / HBM_BYTES_PER_S:.1%} of 3.35 TB/s; {kernels} "
+            f"CUDA kernels profiled beside {walked['launches']} launches "
+            f"counted; peak {walked['peak_bytes']} bytes walked "
+            f"({walked['peak_bytes'] / 2**30:.2f} GiB) beside "
+            f"max_memory_allocated {max_alloc} "
+            f"({max_alloc / 2**30:.2f} GiB); {card}")
+
+    t0 = time.perf_counter()
+    counts = collections.Counter()
+    for arch in sorted(REGISTRY):
+        for shape in SHAPES:
+            if (arch, shape) in DRYRUN_LEFT_OUT:
+                continue
+            rec = dryrun.run_cell(arch, shape, False, save=False)
+            counts[rec["status"]] += 1
+            if rec["status"] == "error":
+                raise AssertionError(f"phase 22 dryrun {arch} {shape}: "
+                                     f"{rec['traceback']}")
+            if rec["status"] == "ok":
+                oc = rec["op_cost"]
+                log(f"phase 22 dryrun pod16x16 {arch} {shape}: "
+                    f"{oc['flops']} flop, {oc['launches']} launches, "
+                    f"kernels {oc['kernels']}, collectives "
+                    f"{oc['collective_total']} bytes, peak "
+                    f"{oc['peak_bytes'] / 2**30:.2f} GiB a rank, by_specs "
+                    f"{rec['memory']['by_specs']['total'] / 2**30:.2f} GiB, "
+                    f"walk {rec['walk_s']} s")
+    log(f"phase 22 dryrun --all --single-pod on meta, less "
+        f"{sorted(DRYRUN_LEFT_OUT)}: "
+        + " ".join(f"{k}={counts[k]}" for k in ("ok", "skipped",
+                                                "not_ported", "error"))
+        + f" in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
     """Phase 12 for flash attention: times and bounds at llama3.2-1b's
     prefill-step shape, in f32 as the path runs it (bf16 beside it)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention_hm,
+    from repro_torch.kernels.flash_attention import (cost,
+                                                     flash_attention_hm,
                                                      flash_attention_hm_torch)
 
     gen = torch.Generator(dev).manual_seed(7)
@@ -3785,16 +3963,16 @@ def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
         qb, kb, vb, is_causal=True, enable_gqa=True), reps=7, inner=5)
     fa_q, fa_kv = q.shape, k.shape
     del q, k, v, qb, kb, vb
-    flops = 4 * B * H * D * S * (S + 1) // 2           # causal QK^T and PV
-    exps = B * H * S * (S + 1) // 2                    # one per visible score
-    nbytes = 4 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
+    work = cost(fa_q, fa_kv)                # causal QK^T and PV, f32
+    flops, exps, nbytes = work["flops"], work["exps"], work["bytes"]
     # at f32 accuracy the products run at 3xTF32's rate; SIMT f32 beside it
     ops_s, bytes_s = flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     fa["bound_ms_simt"] = max(flops / F32_FLOP_PER_S, bytes_s) * 1e3
     # bf16: the products on the bf16 tensor cores and the exponentials on
     # the SFUs, each a bound, and half the bytes
-    fa["bound_ms_bf16"] = max(flops / BF16_FLOP_PER_S, exps / SFU_EXP_PER_S,
-                              nbytes / 2 / HBM_BYTES_PER_S) * 1e3
+    fa["bound_ms_bf16"] = max(
+        flops / BF16_FLOP_PER_S, exps / SFU_EXP_PER_S,
+        cost(fa_q, fa_kv, itemsize=2)["bytes"] / HBM_BYTES_PER_S) * 1e3
     fa["replaced_ms"] = REPLACED_MS["flash_attention_hm"]
     shape = f"q {list(fa_q)} k/v {list(fa_kv)} f32 causal"
     rec = {
@@ -3843,7 +4021,7 @@ def wkv6_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
     replaced at both."""
     import torch
 
-    from repro_torch.kernels.wkv6 import wkv6, wkv6_torch
+    from repro_torch.kernels.wkv6 import cost, wkv6, wkv6_torch
 
     gen = torch.Generator(dev).manual_seed(8)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
@@ -3859,11 +4037,8 @@ def wkv6_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
             "plain_ms": event_ms(lambda: wkv6_torch(*args),
                                  reps=plain_reps[0], inner=plain_reps[1]),
         }
-        # r . S, k v and the decay a (step, d, e); r u k summed and v *
-        # bonus added a (step, d)
-        flops = 5 * B * S * H * D * (D + 1)
-        nbytes = 4 * (5 * B * S * H * D + H * D
-                      + (2 if with_state else 1) * B * H * D * D)
+        work = cost((B, S, H, D), with_state=with_state)     # f32
+        flops, nbytes = work["flops"], work["bytes"]
         ops_s, bytes_s = flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
         t.update({
             "launches": launches[key], "bound_ms": max(ops_s, bytes_s) * 1e3,
@@ -3899,17 +4074,6 @@ def wkv6_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
             **occ}
 
 
-def ssd_least_flops(B: int, S: int, H: int, P: int, N: int) -> int:
-    """The least f32 operations SSD needs: the chunked form at its best
-    chunk L.  A (step, head) costs 2 P N for C . state and 2 P N for the
-    state update, P N / L for decaying the state once a chunk, and for
-    each of its (L + 1) / 2 pairs at or below the diagonal 2 P for M x,
-    2 for the decay and dt, and 2 N for C . B, which all H heads share."""
-    per = min(4 * P * N + P * N / L + (L + 1) * (P + 1 + N / H)
-              for L in range(1, S + 1))
-    return round(B * S * H * per)
-
-
 def ssd_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
     """Phase 12 for SSD: times and bounds at the serve prefill's shape
     (with the fresh cache's zero state, as a serve run passes it) and at
@@ -3917,7 +4081,7 @@ def ssd_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd import ssd, ssd_torch
+    from repro_torch.kernels.ssd import cost, ssd, ssd_torch
 
     gen = torch.Generator(dev).manual_seed(8)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
@@ -3939,9 +4103,8 @@ def ssd_record(dev, launches: dict, path_err: dict, occupancy: dict) -> dict:
             "plain_ms": event_ms(lambda: ssd_torch(*args, chunk=chunk),
                                  reps=5, inner=2),
         }
-        flops = ssd_least_flops(B, S, H, P, N)
-        nbytes = 4 * (2 * B * S * H * P + B * S * H + H + 2 * B * S * N
-                      + (2 if with_state else 1) * B * H * P * N)
+        work = cost((B, S, H, P), N, with_state=with_state)  # f32
+        flops, nbytes = work["flops"], work["bytes"]
         # at f32 accuracy the products run at 3xTF32's rate; SIMT f32 beside
         ops_s, bytes_s = flops / TF32X3_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
         t.update({
@@ -4281,6 +4444,7 @@ def main() -> int:
         raise AssertionError(f"flash_attention_hm at {VLM}'s shape: "
                              f"{at_internvl['ms']} ms is below its bound "
                              f"{at_internvl['bound_ms']}")
+    cost_path(dev, card)
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")
     log(json.dumps({"kernels": records}))

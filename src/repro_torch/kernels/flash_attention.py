@@ -6,7 +6,10 @@ tensors it launches ``csrc/flash_attention.cu`` (built on first use) or
 raises; on CPU tensors it runs :func:`flash_attention_hm_torch`, the same
 function as plain torch ops.  Layouts are head-major, as the reference's:
 q ``[B, H, Sq, D]``, k/v ``[B, Hkv, Skv, D]``, query head ``h`` reading kv
-head ``h // (H // Hkv)``.
+head ``h // (H // Hkv)``.  On ``meta`` tensors it checks the kernel's
+conditions and returns the output's shape, launching nothing; on CUDA and
+``meta`` tensors alike it records its :func:`cost` in the op counter
+(``launch.op_cost``) when one is running.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import math
 import torch
 
 from ..compat import refuse_autograd
+from ..launch.op_cost import record_kernel
 
 NEG_INF = -1e30
 #: the reference's default block (flash_attention.py:76): Sq and Skv must be
@@ -45,6 +49,23 @@ def flash_attention_hm_torch(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def cost(q_shape, kv_shape, causal: bool = True, itemsize: int = 4) -> dict:
+    """The work of one call on q ``[B,H,Sq,D]`` and k/v ``[B,Hkv,Skv,D]``
+    of ``itemsize`` bytes an element: ``flops`` of ``q kᵀ`` and ``P V`` over
+    the visible scores (query ``i`` sees keys ``0..i`` when causal, the
+    diagonal counted), ``exps`` one a visible score, and ``bytes`` q, k,
+    v and the output once each."""
+    B, H, Sq, D = q_shape
+    Hkv, Skv = kv_shape[1], kv_shape[2]
+    if causal:
+        n = min(Sq, Skv)
+        visible = n * (n + 1) // 2 + (Sq - n) * Skv
+    else:
+        visible = Sq * Skv
+    return {"flops": 4 * B * H * D * visible, "exps": B * H * visible,
+            "bytes": itemsize * (2 * B * H * Sq * D + 2 * B * Hkv * Skv * D)}
 
 
 def _check_shapes(q, k, v) -> None:
@@ -109,22 +130,27 @@ def flash_attention_hm(q, k, v, *, causal: bool = True):
     ``min(BLOCK, Sq)`` and ``Skv`` of ``min(BLOCK, Skv)``, else
     ``ValueError``.  On CUDA tensors
     (float32 or bfloat16, contiguous, D 64 or 128) this launches the
-    kernel on the current stream; on CPU tensors it runs the plain
-    version.  With grad mode on, an input that requires grad is refused
-    on every device.  ``flash_attention_hm.launches`` counts kernel
-    launches.
+    kernel on the current stream; on ``meta`` tensors it checks the
+    same conditions and returns an empty output; on CPU tensors it runs
+    the plain version.  With grad mode on, an input that requires grad is
+    refused on every device.  ``flash_attention_hm.launches`` counts
+    kernel launches.
     """
     _check_shapes(q, k, v)
     refuse_autograd("flash_attention_hm", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_hm_torch(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_hm runs on cuda or cpu tensors, "
-                         f"not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_hm runs on cuda or cpu tensors "
+                         f"(meta for shapes), not {q.device}")
     _check_cuda(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    work = cost(q.shape, k.shape, causal, q.element_size())
+    record_kernel("flash_attention_hm", work["flops"], work["bytes"])
+    if q.is_meta:
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().flash_attention_hm(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv,

@@ -9,7 +9,11 @@
 
 computed a chunk at a time: within a chunk the quadratic form
 ``((C Bᵀ) ⊙ decay)(dt ⊙ x) + seg ⊙ (C · state)``, across chunks the
-state ``exp(cums[-1]) state + Σ_t w_t dt_t x_t B_tᵀ``.
+state ``exp(cums[-1]) state + Σ_t w_t dt_t x_t B_tᵀ``.  On ``meta``
+tensors :func:`ssd` checks the kernel's conditions and returns the
+outputs' shapes, launching nothing; on CUDA and ``meta`` tensors alike it
+records its :func:`cost` in the op counter (``launch.op_cost``) when one
+is running.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import functools
 import torch
 
 from ..compat import refuse_autograd
+from ..launch.op_cost import record_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel pads P and N to 64 in shared memory
@@ -64,6 +69,30 @@ def ssd_torch(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
         state = (state * torch.exp(cumb[:, -1])[:, :, None, None]
                  + torch.einsum("blhp,bln->bhpn", w[..., None] * xb, Bb))
     return y.reshape(B, S, H, P).to(x.dtype), state
+
+
+@functools.cache
+def least_flops(B: int, S: int, H: int, P: int, N: int) -> int:
+    """The least f32 operations SSD needs: the chunked form at its best
+    chunk L.  A (step, head) costs 2 P N for C . state and 2 P N for the
+    state update, P N / L for decaying the state once a chunk, and for
+    each of its (L + 1) / 2 pairs at or below the diagonal 2 P for M x,
+    2 for the decay and dt, and 2 N for C . B, which all H heads share."""
+    per = min(4 * P * N + P * N / L + (L + 1) * (P + 1 + N / H)
+              for L in range(1, S + 1))
+    return round(B * S * H * per)
+
+
+def cost(x_shape, N: int, itemsize: int = 4,
+         with_state: bool = False) -> dict:
+    """The work of one call on x of ``x_shape`` ``[B,S,H,P]`` and Bm/Cm
+    ``[B,S,N]`` (x, Bm, Cm and y of ``itemsize`` bytes an element):
+    ``flops`` by :func:`least_flops`, ``bytes`` every input, y and the f32
+    states (the initial one when given) once each."""
+    B, S, H, P = x_shape
+    return {"flops": least_flops(B, S, H, P, N),
+            "bytes": itemsize * (2 * B * S * H * P + 2 * B * S * N)
+            + 4 * (B * S * H + H + (2 if with_state else 1) * B * H * P * N)}
 
 
 def _check_args(x, dt, A, Bm, Cm, init_state, chunk: int) -> None:
@@ -129,8 +158,9 @@ def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     ``min(chunk, S)``, else ``ValueError``; the kernel walks time in its
     own chunks of 64, the same function up to rounding.  On CUDA tensors
     this launches the kernel on the current stream (two CUDA kernels: each
-    chunk's ``C Bᵀ``, shared by the heads, then the scan); on CPU tensors
-    it runs the plain version.  With grad mode on, an input that requires
+    chunk's ``C Bᵀ``, shared by the heads, then the scan); on ``meta``
+    tensors it checks the same conditions and returns empty outputs; on
+    CPU tensors it runs the plain version.  With grad mode on, an input that requires
     grad is refused on every device.  ``ssd.launches`` counts those
     launches, one a call.
     """
@@ -138,8 +168,9 @@ def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     refuse_autograd("ssd", x, dt, A, Bm, Cm, init_state)
     if x.device.type == "cpu":
         return ssd_torch(x, dt, A, Bm, Cm, init_state, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd runs on cuda or cpu tensors, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd runs on cuda or cpu tensors (meta for "
+                         f"shapes), not {x.device}")
     _check_cuda(x, dt, A, Bm, Cm, init_state)
     B, S, H, P = x.shape
     N = Bm.shape[-1]
@@ -148,6 +179,10 @@ def ssd(x, dt, A, Bm, Cm, init_state=None, *, chunk: int = 128):
     # scratch for each chunk's C Bᵀ, which all H heads share
     gram = torch.empty((B, -(-S // KERNEL_CHUNK), KERNEL_CHUNK, KERNEL_CHUNK),
                        dtype=torch.float32, device=x.device)
+    work = cost(x.shape, N, x.element_size(), init_state is not None)
+    record_kernel("ssd", work["flops"], work["bytes"])
+    if x.is_meta:
+        return y, state
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _lib().ssd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),

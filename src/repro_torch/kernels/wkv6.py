@@ -11,7 +11,10 @@
 The kernel splits each head's state over blocks and threads and sums
 ``r_t · S`` in another order than :func:`wkv6_torch` (its note says
 which); its decay is one FMA, where the plain version rounds ``w S`` and
-``k vᵀ`` before adding them.
+``k vᵀ`` before adding them.  On ``meta`` tensors :func:`wkv6` checks
+the kernel's conditions and returns the outputs' shapes, launching
+nothing; on CUDA and ``meta`` tensors alike it records its :func:`cost`
+in the op counter (``launch.op_cost``) when one is running.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import functools
 import torch
 
 from ..compat import refuse_autograd
+from ..launch.op_cost import record_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -41,6 +45,21 @@ def wkv6_torch(r, k, v, w, u, init_state=None):
         out[:, t] = torch.einsum("bhd,bhde->bhe", rf[:, t], state + uf * kv)
         state = wf[:, t, :, :, None] * state + kv
     return out.to(r.dtype), state
+
+
+def cost(shape, itemsize: int = 4, w_itemsize: int = 4,
+         with_state: bool = False) -> dict:
+    """The work of one call on r, k, v, w of ``shape`` ``[B,S,H,D]`` (r, k,
+    v and the output of ``itemsize`` bytes an element, w of
+    ``w_itemsize``): ``flops``, for each (step, head) ``r · S``, ``k vᵀ``
+    and the decay a (d, e) and ``r u k`` and ``v`` times the bonus a d;
+    ``bytes`` every stream, u and the f32 states (the initial one when
+    given) once each."""
+    B, S, H, D = shape
+    n = B * S * H * D
+    return {"flops": 5 * n * (D + 1),
+            "bytes": 4 * n * itemsize + n * w_itemsize
+            + 4 * (H * D + (2 if with_state else 1) * B * H * D * D)}
 
 
 def _check_args(r, k, v, w, u, init_state, chunk: int) -> None:
@@ -108,7 +127,8 @@ def wkv6(r, k, v, w, u, init_state=None, *, chunk: int = 64):
     ``chunk`` keeps the reference's rule: ``S`` must be a multiple of
     ``min(chunk, S)``, else ``ValueError``; the kernel stages time in its
     own stretches.  On CUDA tensors this launches the kernel on the
-    current stream; on CPU tensors it runs the plain version.  With grad
+    current stream; on ``meta`` tensors it checks the same conditions and
+    returns empty outputs; on CPU tensors it runs the plain version.  With grad
     mode on, an input that requires grad is refused on every device.
     ``wkv6.launches`` counts kernel launches.
     """
@@ -116,12 +136,18 @@ def wkv6(r, k, v, w, u, init_state=None, *, chunk: int = 64):
     refuse_autograd("wkv6", r, k, v, w, u, init_state)
     if r.device.type == "cpu":
         return wkv6_torch(r, k, v, w, u, init_state)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6 runs on cuda or cpu tensors, not {r.device}")
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv6 runs on cuda or cpu tensors (meta for "
+                         f"shapes), not {r.device}")
     _check_cuda(r, k, v, w, u, init_state)
     B, S, H, D = r.shape
     out = torch.empty_like(r)
     state = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    work = cost(r.shape, r.element_size(), w.element_size(),
+                init_state is not None)
+    record_kernel("wkv6", work["flops"], work["bytes"])
+    if r.is_meta:
+        return out, state
     stream = torch.cuda.current_stream(r.device).cuda_stream
     rc = _lib().wkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),

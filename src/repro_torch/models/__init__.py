@@ -18,6 +18,7 @@ import torch
 
 from . import encdec, hybrid, rwkv, transformer
 from .config import ArchConfig, MLAConfig, MoEConfig, RWKVConfig, SSMConfig
+from .transformer import ParallelCtx
 
 
 @dataclass(frozen=True)
@@ -25,7 +26,7 @@ class Model:
     """Uniform handle: every family exposes the same five functions."""
     cfg: ArchConfig
     init: Callable          # (generator, dtype, device) -> params
-    loss: Callable          # (params, batch) -> scalar
+    loss: Callable          # (params, batch, ctx) -> scalar
     forward: Callable       # (params, tokens, **kw) -> (logits, caches)
     init_cache: Callable    # (batch, max_len, dtype, device) -> caches
     decode_step: Callable   # (params, tokens1, caches, pos, **kw) -> (logits, caches)
@@ -47,7 +48,8 @@ def build_model(cfg: ArchConfig) -> Model:
         cfg=cfg,
         init=lambda gen, dtype=torch.bfloat16, device=None: mod.init_params(
             cfg, gen, dtype, device),
-        loss=lambda params, batch: mod.loss_fn(cfg, params, batch),
+        loss=lambda params, batch, ctx=ParallelCtx(): mod.loss_fn(
+            cfg, params, batch, ctx),
         forward=lambda params, tokens, **kw: mod.forward(
             cfg, params, tokens, **kw),
         init_cache=lambda batch, max_len, dtype=torch.bfloat16, device=None:
@@ -58,4 +60,4 @@ def build_model(cfg: ArchConfig) -> Model:
 
 
 __all__ = ["ArchConfig", "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig",
-           "Model", "build_model"]
+           "Model", "ParallelCtx", "build_model"]

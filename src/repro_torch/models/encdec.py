@@ -22,7 +22,10 @@ stacked (``[L, ...]``) as in the reference; when training (``cfg.remat``,
 grad mode on and params that require grad) each block is rematerialised
 in the backward, as the reference wraps its scanned bodies in
 ``jax.checkpoint``.  Decode caches are GQA caches written in place with a
-host-integer ``len``.
+host-integer ``len``.  ``forward``, ``loss_fn`` and ``decode_step`` take
+the reference's ``ParallelCtx``, which the reference's encoder-decoder
+reads nowhere (its ``xent`` reads it for a layout hint, not ported), so
+``ctx`` changes nothing here.
 """
 from __future__ import annotations
 
@@ -35,8 +38,8 @@ from ..compat import default_device
 from .config import ArchConfig
 from .layers import (attention_core, gqa_apply, gqa_params, mlp_apply,
                      mlp_params, normal, rmsnorm)
-from .transformer import (layer_cache, remat, rematerialised, stacked,
-                          unstack, xent)
+from .transformer import (ParallelCtx, layer_cache, remat, rematerialised,
+                          stacked, unstack, xent)
 
 #: rows of the learned encoder positions; longer inputs tile them
 ENC_POS = 8192
@@ -168,10 +171,11 @@ def decode(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
 
 
 def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
-            caches=None, pos_offset: int = 0, window: Optional[int] = None):
+            caches=None, pos_offset: int = 0,
+            ctx: ParallelCtx = ParallelCtx(), window: Optional[int] = None):
     """Encode ``extra_embeds`` (the frames, required), then decode
     ``tokens`` against them: (logits [B, S_text, V], caches)."""
-    del window      # the reference's encdec takes and ignores it
+    del window, ctx     # the reference's encdec takes and ignores both
     if extra_embeds is None:
         raise AssertionError("enc-dec needs frame embeddings")
     enc = encode(cfg, params, extra_embeds)
@@ -179,13 +183,14 @@ def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
                   pos_offset=pos_offset)
 
 
-def loss_fn(cfg: ArchConfig, params, batch):
+def loss_fn(cfg: ArchConfig, params, batch,
+            ctx: ParallelCtx = ParallelCtx()):
     """Next-token cross-entropy over the text: batch = {tokens, labels,
     extra_embeds}.  The logits cover only the text, so the labels are not
     padded."""
     logits, _ = forward(cfg, params, batch["tokens"],
-                        extra_embeds=batch["extra_embeds"])
-    return xent(logits, batch["labels"])
+                        extra_embeds=batch["extra_embeds"], ctx=ctx)
+    return xent(logits, batch["labels"], ctx)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -201,9 +206,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int, *,
-                enc_out):
+                enc_out, ctx: ParallelCtx = ParallelCtx()):
     """One incremental decode step: tokens1 [B, 1] at absolute position
     ``pos``, attending to ``enc_out`` (required, as in the reference)."""
+    del ctx
     logits, new_caches = decode(cfg, params, tokens1, enc_out, caches=caches,
                                 pos_offset=pos)
     return logits[:, -1], new_caches

@@ -6,8 +6,11 @@ transformer block (attention + MLP with its own weights) is applied every
 shared attention uses the config's sliding window, with a ring-buffer
 cache once the window is shorter than the cache.  The reference's groups
 of SSM layers scanned between attention applications become one Python
-loop over the layers (the same order); ``seq_shard`` and ``ParallelCtx``
-have no counterpart on one card.  Mamba2 layers stay stacked (``[n_ssm,
+loop over the layers (the same order).  Every function takes the
+reference's ``ParallelCtx``: the reference reads it only for
+``seq_shard``'s layout hints (and passes it to the shared attention,
+which reads it for the same), which change no value and are not ported,
+so ``ctx`` changes nothing here.  Mamba2 layers stay stacked (``[n_ssm,
 ...]``) as in the reference, each rematerialised in the backward when
 training (the shared block is not, as in the reference; its weights get
 one gradient summed over its applications); decode caches are updated in
@@ -24,7 +27,7 @@ from ..compat import default_device
 from .config import ArchConfig
 from .layers import gqa_apply, gqa_params, mlp_apply, mlp_params, normal, rmsnorm
 from .ssm import mamba2_apply, mamba2_params
-from .transformer import (attn_cache, layer, layer_cache, remat,
+from .transformer import (ParallelCtx, attn_cache, layer, layer_cache, remat,
                           rematerialised, unstack, xent)
 
 
@@ -72,11 +75,13 @@ def _n_attn(cfg: ArchConfig) -> int:
 
 
 def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
-            window: Optional[int] = None, extra_embeds=None):
+            ctx: ParallelCtx = ParallelCtx(), window: Optional[int] = None,
+            extra_embeds=None):
     """tokens [B,S] -> (logits [B,S,V], caches).  ``caches`` (as
     :func:`init_cache` makes them) are written in place; pos_offset is the
     absolute position of tokens[:,0]."""
-    del extra_embeds  # hybrid arch has no modality frontend
+    # no modality frontend; ctx: layout hints only (module doc)
+    del extra_embeds, ctx
     window = cfg.sliding_window if window is None else window
     x = params["embed"][tokens]
     S = x.shape[1]
@@ -125,9 +130,10 @@ def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
     return logits, new_caches
 
 
-def loss_fn(cfg: ArchConfig, params, batch):
-    logits, _ = forward(cfg, params, batch["tokens"])
-    return xent(logits, batch["labels"])
+def loss_fn(cfg: ArchConfig, params, batch,
+            ctx: ParallelCtx = ParallelCtx()):
+    logits, _ = forward(cfg, params, batch["tokens"], ctx=ctx)
+    return xent(logits, batch["labels"], ctx)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -151,8 +157,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     }
 
 
-def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int):
+def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int,
+                ctx: ParallelCtx = ParallelCtx()):
     """One incremental decode step: tokens1 [B,1] at absolute position pos."""
     logits, new_caches = forward(cfg, params, tokens1, caches=caches,
-                                 pos_offset=pos)
+                                 pos_offset=pos, ctx=ctx)
     return logits[:, -1], new_caches

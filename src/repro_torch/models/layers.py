@@ -371,6 +371,16 @@ def moe_params(gen, cfg: ArchConfig, dtype, device):
     return p
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.nn.one_hot`` in int64: the last dim marks ``idx``, and an
+    index outside ``[0, n)`` gives a zero row.  A comparison with
+    ``arange(n)``, the same ops on every device: ``F.one_hot`` refuses such
+    an index and dispatches other ops on CUDA (a scatter) than on the CPU
+    (its range checks) and on ``meta``, so the op counter's counts of a
+    step on the card and on ``meta`` would differ."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def top_k(x: torch.Tensor, k: int):
     """``lax.top_k``: the ``k`` largest along the last dim, in descending
     order, ties to the lower index (a stable descending sort; ``torch.topk``
@@ -415,14 +425,12 @@ def moe_einsum_apply(p, x, cfg: ArchConfig):
     G, Tg, C = moe_groups(cfg, T)
     xt = x.reshape(G, Tg, d)
     gate, idx = route(p["router"], xt, k)                   # [G,Tg,k]
-    onehot = F.one_hot(idx, E)                              # [G,Tg,k,E]
+    onehot = one_hot(idx, E)                                # [G,Tg,k,E]
     pos_all = torch.cumsum(onehot.reshape(G, Tg * k, E), dim=1).reshape(
         G, Tg, k, E) - 1
     pos = (pos_all * onehot).sum(-1)                        # [G,Tg,k]
-    keep = pos < C
-    # jax.nn.one_hot gives a zero row for pos >= C; F.one_hot refuses it
-    slot_oh = (F.one_hot(torch.where(keep, pos, 0), C).to(x.dtype)
-               * keep[..., None].to(x.dtype))               # [G,Tg,k,C]
+    # a zero row where pos >= C: the slot is dropped
+    slot_oh = one_hot(pos, C).to(x.dtype)                   # [G,Tg,k,C]
     disp = torch.einsum("gtke,gtkc->gtec", onehot.to(x.dtype), slot_oh)
     comb = torch.einsum("gtke,gtk,gtkc->gtec", onehot.float(), gate.float(),
                         slot_oh.float())

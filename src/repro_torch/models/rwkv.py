@@ -3,7 +3,10 @@
 The port of the reference package's ``models/rwkv.py``.  Layers stay
 stacked as in the reference and are looped over in Python, each
 rematerialised in the backward when training (as the reference's scanned
-body is); decode caches are updated in place.
+body is); decode caches are updated in place.  Every function takes the
+reference's ``ParallelCtx``: the reference reads it only for
+``seq_shard``'s layout hints, which change no value and are not ported,
+so ``ctx`` changes nothing here.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from ..compat import default_device
 from .config import ArchConfig
 from .layers import normal
 from .ssm import rwkv6_channel_mix, rwkv6_params, rwkv6_time_mix
-from .transformer import layer, remat, rematerialised, stacked, unstack, xent
+from .transformer import (ParallelCtx, layer, remat, rematerialised, stacked,
+                          unstack, xent)
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
@@ -48,10 +52,11 @@ def _ln(w, x, eps):
 
 
 def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
-            window=None, extra_embeds=None):
+            ctx: ParallelCtx = ParallelCtx(), window=None, extra_embeds=None):
     """tokens [B,S] -> (logits [B,S,V], caches).  ``caches`` (stacked, as
     :func:`init_cache` makes them) are written in place."""
-    del pos_offset, window, extra_embeds   # no positions, no frontend
+    # no positions, no frontend; ctx: layout hints only (module doc)
+    del pos_offset, window, extra_embeds, ctx
     x = _ln(params["ln_in"], params["embed"][tokens], cfg.rms_eps)
     use_kernel = cfg.attn_impl == "cuda"
     on = caches is None and remat(cfg, params)
@@ -81,9 +86,10 @@ def forward(cfg: ArchConfig, params, tokens, *, caches=None, pos_offset=0,
     return logits, caches
 
 
-def loss_fn(cfg: ArchConfig, params, batch):
-    logits, _ = forward(cfg, params, batch["tokens"])
-    return xent(logits, batch["labels"])
+def loss_fn(cfg: ArchConfig, params, batch,
+            ctx: ParallelCtx = ParallelCtx()):
+    logits, _ = forward(cfg, params, batch["tokens"], ctx=ctx)
+    return xent(logits, batch["labels"], ctx)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -104,7 +110,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             "cm": {"shift": zeros((L, batch, 1, d))}}
 
 
-def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int):
+def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int,
+                ctx: ParallelCtx = ParallelCtx()):
     logits, new_caches = forward(cfg, params, tokens1, caches=caches,
-                                 pos_offset=pos)
+                                 pos_offset=pos, ctx=ctx)
     return logits[:, -1], new_caches

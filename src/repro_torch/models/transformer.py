@@ -207,6 +207,22 @@ def _block(cfg: ArchConfig, p, x, positions, cache, moe_layer: bool,
     return x + f, new_cache
 
 
+def ep_axis_for(cfg: ArchConfig, B: int, S: int, mesh):
+    """The mesh axis (or axis tuple) an MoE layer's expert-parallel region
+    spans at ``B x S`` tokens, or None where :func:`_moe_dispatch` takes
+    another form: ``impl="ep_a2a"``, a mesh, ``cfg.moe.ep_threshold``
+    tokens or more and a sequence the 'model' axis divides.  EP spans
+    (data x model) when the expert count divides (DeepSeek: 256 experts
+    over the whole 256-rank pod, one expert per rank); otherwise just the
+    model axis; None when neither divides.  It must match the storage
+    sharding of the experts."""
+    if not (cfg.moe.impl == "ep_a2a" and mesh is not None
+            and B * S >= cfg.moe.ep_threshold
+            and S % mesh.shape["model"] == 0):
+        return None
+    return _fit_axis(("data", "model"), cfg.moe.n_experts, mesh)
+
+
 def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
     """Pick the MoE execution strategy, as the reference does.
 
@@ -225,24 +241,15 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
       outside the region, on every rank.
     """
     B, S, _ = h.shape
-    T = B * S
     mesh = None if ctx is None else ctx.mesh
-    use_ep = (cfg.moe.impl == "ep_a2a" and mesh is not None
-              and T >= cfg.moe.ep_threshold
-              and S % mesh.shape["model"] == 0)
-    if not use_ep:
-        if cfg.moe.impl == "ep_a2a" and mesh is None and T >= EP_MIN_TOKENS:
+    ep_axis = ep_axis_for(cfg, B, S, mesh)
+    if ep_axis is None:
+        if cfg.moe.impl == "ep_a2a" and mesh is None \
+                and B * S >= EP_MIN_TOKENS:
             # large token count without a mesh: still exercise the EP path
             return moe_ep_apply(pmoe, h, cfg)
         return moe_einsum_apply(pmoe, h, cfg)
-
-    # EP spans (data x model) when the expert count divides (DeepSeek: 256
-    # experts over the whole 256-rank pod, one expert per rank); otherwise
-    # just the model axis.  Must match the storage sharding of the experts.
     E = cfg.moe.n_experts
-    ep_axis = _fit_axis(("data", "model"), E, mesh)
-    if ep_axis is None:
-        return moe_einsum_apply(pmoe, h, cfg)
     ep_size = _axis_size(mesh, ep_axis)
     tok_spec = P(ctx.dp_spec, "model", None)
     routed = {"router": pmoe["router"]}
@@ -338,14 +345,17 @@ def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
     return _unembed(cfg, params, x), new_caches
 
 
-def xent(logits, labels):
+def xent(logits, labels, ctx: ParallelCtx = ParallelCtx()):
     """Mean next-token cross entropy over the labels ``>= 0``.
 
     The reference contracts the logits with a ``[B,S,V]`` one-hot (a
     sharding device); here the gold logit is gathered, at an index
     clamped to 0 where the label is ``-1`` (whose one-hot row is all
     zeros), and the mask zeroes those terms.  The mean's denominator is
-    floored at 1, as the reference's is."""
+    floored at 1, as the reference's is.  ``ctx`` is the reference's: with
+    a mesh it constrains the logits' layout (a GSPMD hint that changes no
+    value and is not ported), so it changes nothing here."""
+    del ctx
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
@@ -354,10 +364,12 @@ def xent(logits, labels):
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(cfg: ArchConfig, params, batch):
-    """Next-token cross-entropy; batch = {tokens, labels[, extra_embeds]}."""
+def loss_fn(cfg: ArchConfig, params, batch,
+            ctx: ParallelCtx = ParallelCtx()):
+    """Next-token cross-entropy; batch = {tokens, labels[, extra_embeds]};
+    ``ctx`` goes to the forward's MoE layers."""
     logits, _ = forward(cfg, params, batch["tokens"],
-                        extra_embeds=batch.get("extra_embeds"))
+                        extra_embeds=batch.get("extra_embeds"), ctx=ctx)
     labels = batch["labels"]
     if batch.get("extra_embeds") is not None:
         # loss only on text positions: labels padded with -1 over the
@@ -366,7 +378,7 @@ def loss_fn(cfg: ArchConfig, params, batch):
         labels = torch.cat([torch.full(labels.shape[:1] + (prefix,), -1,
                                        dtype=labels.dtype,
                                        device=labels.device), labels], dim=1)
-    return xent(logits, labels)
+    return xent(logits, labels, ctx)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -381,8 +393,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             for group, _, n, _ in stacks(cfg)}
 
 
-def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int):
-    """One incremental decode step: tokens1 [B,1] at absolute position pos."""
+def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int,
+                ctx: ParallelCtx = ParallelCtx()):
+    """One incremental decode step: tokens1 [B,1] at absolute position pos
+    (``ctx`` goes to the forward's MoE layers)."""
     logits, new_caches = forward(cfg, params, tokens1, caches=caches,
-                                 pos_offset=pos)
+                                 pos_offset=pos, ctx=ctx)
     return logits[:, -1], new_caches

@@ -17,6 +17,13 @@ the identity (``ppermute`` gives zeros to a rank that receives nothing).
 ``all_to_all`` and ``all_gather`` are forward-only (the port runs them in
 serving and in gradient exchange); ``ppermute`` and ``psum`` carry
 gradients, for training through the pipeline.
+
+A group whose process group is :data:`DRY` (a dry mesh's, see
+``launch.dryrun``) moves nothing: each collective takes ``meta`` tensors
+only, records its operand bytes in the op counter
+(``launch.op_cost.record_collective``) under the reference's HLO name
+(``all-to-all``, ``all-gather``, ``all-reduce``, ``collective-permute``)
+and returns a ``meta`` tensor of the result's shape.
 """
 from __future__ import annotations
 
@@ -25,6 +32,17 @@ from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..launch.op_cost import record_collective
+
+
+class _Dry:
+    def __repr__(self) -> str:
+        return "DRY"
+
+
+#: the process group of an axis of a dry mesh (no ranks behind it)
+DRY = _Dry()
 
 
 @dataclass(frozen=True)
@@ -43,6 +61,17 @@ def axis_index(group: AxisGroup) -> int:
     return group.index
 
 
+def _dry(x: torch.Tensor, group: AxisGroup, kind: str,
+         shape=None) -> torch.Tensor:
+    """A collective over a dry group: ``x``'s bytes recorded under
+    ``kind``, an empty ``meta`` result of ``shape`` (``x``'s if None)."""
+    if not x.is_meta:
+        raise ValueError(f"a dry group (axis {group.name!r}) takes meta "
+                         f"tensors, not {x.device} ones")
+    record_collective(kind, x.numel() * x.element_size())
+    return x.new_empty(x.shape if shape is None else shape)
+
+
 def _out(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     """``x`` as the transport takes it: on the host for a staged group."""
     return x.cpu().contiguous() if group.staged else x.contiguous()
@@ -57,6 +86,8 @@ def all_to_all(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
                          f"leading dim of {group.size}, not {x.shape[0]}")
     if group.pg is None:
         return x
+    if group.pg is DRY:
+        return _dry(x, group, "all-to-all")
     src = _out(x, group)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group.pg)
@@ -68,6 +99,8 @@ def all_gather(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     rank ``i``."""
     if group.pg is None:
         return x.unsqueeze(0)
+    if group.pg is DRY:
+        return _dry(x, group, "all-gather", (group.size,) + tuple(x.shape))
     src = _out(x, group)
     parts = [torch.empty_like(src) for _ in range(group.size)]
     dist.all_gather(parts, src, group=group.pg)
@@ -77,6 +110,8 @@ def all_gather(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
 def _all_reduce(x: torch.Tensor, group: AxisGroup, op) -> torch.Tensor:
     if group.pg is None:
         return x
+    if group.pg is DRY:
+        return _dry(x, group, "all-reduce")
     buf = x.cpu() if group.staged else x.clone()
     dist.all_reduce(buf, op=op, group=group.pg)
     return buf.to(x.device)
@@ -119,6 +154,8 @@ def _permute(x: torch.Tensor, group: AxisGroup,
     srcs = [s for s, d in perm if d == me]
     if group.pg is None:
         return x.clone() if srcs else torch.zeros_like(x)
+    if group.pg is DRY:
+        return _dry(x, group, "collective-permute")
     src = _out(x, group)
     recv = torch.zeros_like(src)
     ops = [dist.P2POp(dist.isend, src, group.ranks[d], group.pg)
