@@ -15,7 +15,9 @@ whisper-tiny (encoder-decoder) at full width and depth, and internvl2-26b
 (a decoder behind 256 patch embeddings) at full width cut to four layers,
 f32 weights drawn from a seed.  The training path: llama3.2-1b and
 whisper-tiny at full width, all three dense-or-recurrent families at tiny
-width.  Parallelism: four ranks of ``torch.distributed``.
+width, and under meshes llama3.2-1b data-parallel and
+granite-moe-1b-a400m expert-parallel at full width and depth.
+Parallelism: four ranks of ``torch.distributed``.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
@@ -223,9 +225,25 @@ width.  Parallelism: four ranks of ``torch.distributed``.
     step with its FLOPs, ms, TFLOP/s against the f32 SIMT peak, bytes a
     second against 3.35 TB/s, the profiler's kernels beside the counted
     launches and the walk's peak beside ``max_memory_allocated``; then
-    ``launch/dryrun.py``'s cells of ``--all --single-pod`` on ``meta``,
-    less the two whose attention is a Python loop of minutes
-    (``DRYRUN_LEFT_OUT``), none failing.
+    ``launch/dryrun.py``'s cells of ``--all --single-pod`` on ``meta``
+    (the train cells among them, rank 0's step under the mesh) on a pool
+    of three spawned processes that walk while phase 23 runs, less the
+    four whose walk takes over a minute (``DRYRUN_LEFT_OUT``), none
+    failing, read after phase 23.
+23. the train step under a mesh, after phase 22, through ``run_ranks``
+    (no kernel is on a training path): (a) llama3.2-1b at full width and
+    depth, data-parallel, on a (4, 1) (data, model) mesh over NCCL when
+    the host has four cards, else (2, 1) over gloo on the one card, 3
+    steps of phase 17's B=8 S=256 global batch; (b) granite-moe-1b-a400m
+    at full width and depth with ``impl="ep_a2a"`` on a (2, 2) mesh (its
+    32 experts over data x model, 8 a rank), 2 steps of B=8 S=512 (4,096
+    tokens, its ``ep_threshold``) at capacity 4.0, drop-free, then one
+    at its 1.25.  Each is first run on one rank in this process; every
+    rank's loss within 1e-5 of it, its first step's gradient leaves
+    within 1e-4 of their largest, the params after the steps within
+    ``TRAIN_STATE_RTOL``'s update norm; logged with the transport, the
+    card count, step ms, the exchange's seconds and bytes, each rank's
+    peak memory and (b)'s dropped slots at 1.25.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -253,6 +271,8 @@ import concurrent.futures
 import contextlib
 import gc
 import json
+import multiprocessing
+import os
 import re
 import statistics
 import subprocess
@@ -3772,14 +3792,33 @@ def parallel_path(dev, card) -> dict:
 #: slots with the serve loop's prompt in it
 COST_DECODE_B, COST_DECODE_SLOTS = SERVE_B, SERVE_LP + SERVE_G
 COST_REPS = 3                           # timed runs of each step
-#: cells of ``dryrun --all --single-pod`` phase 22 leaves out: their
-#: attention runs the plain chunked loop on the card's route too
-#: (deepseek-v3-671b's MLA head dims, zamba2-7b's sliding window), minutes
-#: of Python a cell on the host (PERF.md, PR 30)
-DRYRUN_LEFT_OUT = {("deepseek-v3-671b", "prefill_32k"),
-                   ("zamba2-7b", "prefill_32k")}
+#: cells of ``dryrun --all --single-pod`` phase 22 leaves out, those whose
+#: walk on a CPU took over a minute (PERF.md, PRs 30 and 31): the two
+#: prefills' attention runs the plain chunked loop on the card's route
+#: too (deepseek-v3-671b's MLA head dims, zamba2-7b's sliding window);
+#: rwkv6-1.6b's train step the plain WKV6 recurrence, a Python loop over
+#: 4,096 steps a layer, forward, recomputed and backward; deepseek's train
+#: step its 61 layers
+DRYRUN_LEFT_OUT = {
+    ("deepseek-v3-671b", "prefill_32k"): "721-758 s walk",
+    ("zamba2-7b", "prefill_32k"): "190 s walk",
+    ("rwkv6-1.6b", "train_4k"): "1,246 s walk",
+    ("deepseek-v3-671b", "train_4k"): "57-68 s walk",
+}
+#: processes the dry run's cells walk on (spawned) beside phase 23, which
+#: keeps the other cores
+DRYRUN_WORKERS = 3
 #: what the card's count and the meta walk must agree on
 COUNTED = ("flops", "bytes_accessed", "launches", "kernels")
+
+
+def dryrun_cell(cell) -> dict:
+    """One ``dryrun --single-pod`` cell's record, walked on ``meta`` in a
+    worker process of phase 22 (``repro_torch`` put on its path)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+
+    return dryrun.run_cell(*cell, False, save=False)
 
 
 def cost_steps():
@@ -3850,13 +3889,11 @@ def cost_path(dev, card) -> None:
     counted run, which the dispatch mode slows), the achieved TFLOP/s
     against the f32 SIMT peak, bytes a second against 3.35 TB/s, the
     profiler's CUDA kernels beside the counted launches, and the walk's
-    peak beside ``torch.cuda.max_memory_allocated()``.  (c)
-    ``python -m repro_torch.launch.dryrun --all --single-pod``'s cells in
-    process on ``meta``, less :data:`DRYRUN_LEFT_OUT`: none may fail."""
+    peak beside ``torch.cuda.max_memory_allocated()``.  (c), ``python -m
+    repro_torch.launch.dryrun --all --single-pod``'s cells, is walked
+    beside phase 23 (:func:`start_dryrun`, :func:`finish_dryrun`)."""
     import torch
 
-    from repro_torch.configs import REGISTRY, SHAPES
-    from repro_torch.launch import dryrun
     from repro_torch.launch.op_cost import op_cost
 
     t_phase = time.perf_counter()
@@ -3902,32 +3939,370 @@ def cost_path(dev, card) -> None:
             f"max_memory_allocated {max_alloc} "
             f"({max_alloc / 2**30:.2f} GiB); {card}")
 
-    t0 = time.perf_counter()
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s on {card}, its "
+        f"dry run to come beside phase 23")
+
+
+def start_dryrun():
+    """Phase 22 (c), started: ``dryrun --all --single-pod``'s cells on
+    ``meta``, less :data:`DRYRUN_LEFT_OUT`, walked on a pool of
+    :data:`DRYRUN_WORKERS` spawned processes while phase 23 runs (its
+    ranks wait on the card and the transport, the walks on the host's
+    cores).  Returns what :func:`finish_dryrun` reads."""
+    from repro_torch.configs import REGISTRY, SHAPES
+
+    # the train cells, the longest walks, first
+    cells = sorted(((a, sh) for a in sorted(REGISTRY) for sh in SHAPES
+                    if (a, sh) not in DRYRUN_LEFT_OUT),
+                   key=lambda c: SHAPES[c[1]].kind != "train")
+    workers = min(DRYRUN_WORKERS, os.cpu_count() or 1)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    futures = [pool.submit(dryrun_cell, c) for c in cells]
+    return pool, cells, futures, workers, time.perf_counter()
+
+
+def finish_dryrun(started) -> None:
+    """Phase 22 (c), read: a line a walked cell; none may fail."""
+    pool, cells, futures, workers, t0 = started
     counts = collections.Counter()
-    for arch in sorted(REGISTRY):
-        for shape in SHAPES:
-            if (arch, shape) in DRYRUN_LEFT_OUT:
-                continue
-            rec = dryrun.run_cell(arch, shape, False, save=False)
-            counts[rec["status"]] += 1
-            if rec["status"] == "error":
-                raise AssertionError(f"phase 22 dryrun {arch} {shape}: "
-                                     f"{rec['traceback']}")
-            if rec["status"] == "ok":
-                oc = rec["op_cost"]
-                log(f"phase 22 dryrun pod16x16 {arch} {shape}: "
-                    f"{oc['flops']} flop, {oc['launches']} launches, "
-                    f"kernels {oc['kernels']}, collectives "
-                    f"{oc['collective_total']} bytes, peak "
-                    f"{oc['peak_bytes'] / 2**30:.2f} GiB a rank, by_specs "
-                    f"{rec['memory']['by_specs']['total'] / 2**30:.2f} GiB, "
-                    f"walk {rec['walk_s']} s")
+    with pool:
+        recs = [f.result() for f in futures]
+    for (arch, shape), rec in zip(cells, recs):
+        counts[rec["status"]] += 1
+        if rec["status"] == "error":
+            raise AssertionError(f"phase 22 dryrun {arch} {shape}: "
+                                 f"{rec['traceback']}")
+        if rec["status"] == "ok":
+            oc = rec["op_cost"]
+            log(f"phase 22 dryrun pod16x16 {arch} {shape}: "
+                f"{oc['flops']} flop, {oc['launches']} launches, "
+                f"kernels {oc['kernels']}, collectives "
+                f"{oc['collective_total']} bytes ("
+                f"{oc['collective_bytes']['all-reduce']} all-reduce), peak "
+                f"{oc['peak_bytes'] / 2**30:.2f} GiB a rank, by_specs "
+                f"{rec['memory']['by_specs']['total'] / 2**30:.2f} GiB, "
+                f"walk {rec['walk_s']} s")
     log(f"phase 22 dryrun --all --single-pod on meta, less "
-        f"{sorted(DRYRUN_LEFT_OUT)}: "
+        f"{ {k: v for k, v in DRYRUN_LEFT_OUT.items()} }: "
         + " ".join(f"{k}={counts[k]}" for k in ("ok", "skipped",
                                                 "not_ported", "error"))
-        + f" in {time.perf_counter() - t0:.1f} s")
-    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s on {card}")
+        + f" in {time.perf_counter() - t0:.1f} s on {workers} processes "
+        f"beside phase 23")
+
+
+# ------------------------------------- phase 23: the train step under a mesh
+MESH_TRAIN_STEPS = 3                    # (a): llama3.2-1b, data-parallel
+#: (b): granite-moe-1b-a400m expert-parallel, 4,096 tokens (its
+#: ep_threshold); capacity E/k = 4.0 drops nothing in either form, the
+#: config's 1.25 does
+MESH_EP_B, MESH_EP_S, MESH_EP_STEPS = 8, 512, 2
+MESH_EP_CF, MESH_EP_DROP_CF = 4.0, 1.25
+MESH_EP_SHAPE = (2, 2)                  # 32 experts, 8 a rank
+MESH_SEED = 2400
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_TOL = 1e-4                    # of each gradient leaf's largest
+
+
+def mesh_train_setup(kind: str, dev, cf: float = MESH_EP_CF):
+    """``(cfg, model, opt_cfg, params, batches)`` of phase 23's (a)
+    (``kind`` "dp") or (b) ("ep"): f32 params from one seed on ``dev``
+    (the same values on every card), global batches from another, each
+    with ``-1`` labels on half of row 0 and all of the last row, so the
+    data blocks count different labels."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    if kind == "dp":
+        cfg = get_config(LLAMA).replace(attn_impl="xla")
+        B, S, n = TRAIN_B, TRAIN_S, MESH_TRAIN_STEPS
+    else:
+        cfg = get_config(GRANITE)
+        cfg = cfg.replace(attn_impl="xla", moe=dataclasses.replace(
+            cfg.moe, impl="ep_a2a", capacity_factor=cf))
+        B, S, n = MESH_EP_B, MESH_EP_S, MESH_EP_STEPS
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+    params = model.init(torch.Generator(dev).manual_seed(MESH_SEED),
+                        torch.float32, dev)
+    batches = []
+    for i in range(n):
+        gen = torch.Generator().manual_seed(MESH_SEED + 1 + i)
+        toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen)
+        labels = toks[:, 1:].clone()
+        labels[0, :S // 2] = -1
+        labels[-1] = -1
+        batches.append({"tokens": toks[:, :-1].to(dev),
+                        "labels": labels.to(dev)})
+    return cfg, model, opt_cfg, params, batches
+
+
+def one_rank_steps(kind: str, dev) -> dict:
+    """The steps of (a) or (b) without a mesh, on the card: each step's
+    loss and ms, the first step's gradient and the params after the
+    steps (left on the card, which the ranks then share)."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.optim import init_state
+    from repro_torch.tree import leaves
+
+    cfg, model, opt_cfg, params, batches = mesh_train_setup(kind, dev)
+    state = init_state(opt_cfg, params)
+    step = steps.make_train_step(model, opt_cfg)
+    grads = []
+    orig = steps.apply_updates
+
+    def capturing(c, p, g, st, **kw):
+        if not grads:
+            grads.extend(x.clone() for x in leaves(g))
+        return orig(c, p, g, st, **kw)
+
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with swapped(steps, "apply_updates", capturing):
+        for b in batches:
+            (params, state, loss), dt = timed(lambda: step(params, state, b))
+            losses.append(float(loss))
+            ms.append(dt * 1e3)
+    # kept on the card: the spawned ranks open them through CUDA IPC
+    out = {"losses": losses, "ms": ms, "grads": grads,
+           "params": leaves(params), "peak": torch.cuda.max_memory_allocated()}
+    del params, state, step, batches, grads
+    free_model(f"phase 23 {kind} one rank")
+    return out
+
+
+def mesh_train_rank(device, kind: str, shape, ref: dict) -> dict:
+    """Phase 23 on one rank: the steps of (a) or (b) under a ``shape``
+    (data, model) mesh from the same params and global batches as the
+    parent's one-rank steps ``ref``, the rank holding its slice of each
+    expert stack; the first step's gradient and the params after the
+    steps against ``ref``'s, the step and exchange times, the exchanged
+    bytes, the peak memory; for (b) one more step at capacity 1.25 with
+    its dropped slots."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import ParallelCtx, transformer
+    from repro_torch.optim import init_state
+    from repro_torch.parallel.sharding import (dp_axes, local_shard,
+                                               spec_for_param)
+    from repro_torch.tree import leaves, rebuild
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh(shape, ("data", "model"), device=device)
+    ctx = ParallelCtx(mesh=mesh, dp_spec="data")
+
+    def sync():
+        torch.cuda.synchronize(device)
+        dist.barrier()
+
+    def spec_for(path, p):
+        return spec_for_param(path, tuple(p.shape), mesh)
+
+    def held(params):
+        """The params as the rank holds them: expert stacks cut."""
+        return rebuild(params, [
+            local_shard(p, spec_for(path, p), mesh).clone()
+            if steps._EXPERTS.search(path) else p
+            for path, p in zip(steps._paths(params), leaves(params))])
+
+    def sliced(want, path, got):
+        """``ref``'s leaf (on the parent's card) cut to this rank's slice
+        where the rank holds one, on this rank's card."""
+        if tuple(want.shape) != tuple(got.shape):
+            want = local_shard(want, spec_for(path, want), mesh)
+        return want.to(device)
+
+    res = {"transport": dist.get_backend(), "rank": dist.get_rank(),
+           "t_in": time.time()}
+    cfg, model, opt_cfg, params, batches = mesh_train_setup(kind, device)
+    params = held(params)
+    paths = steps._paths(params)
+    state = init_state(opt_cfg, params)
+    step = steps.make_train_step(model, opt_cfg, ctx)
+    grads, ex_s, ex_bytes = [], [], []
+    orig_update, orig_exchange = steps.apply_updates, steps.exchange
+
+    def capturing(c, p, g, st, **kw):
+        if not grads:
+            grads.extend(x.clone() for x in leaves(g))
+        return orig_update(c, p, g, st, **kw)
+
+    def timed_exchange(gl, specs, m):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = orig_exchange(gl, specs, m)
+        torch.cuda.synchronize(device)
+        ex_s.append(time.perf_counter() - t0)
+        ex_bytes.append(sum(
+            4 * g.numel() for g, sp in zip(gl, specs)
+            if any(a not in steps._named(sp) and m.shape[a] > 1
+                   for a in dp_axes(m))))
+        return out
+
+    losses, ms = [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    with swapped(steps, "apply_updates", capturing), \
+            swapped(steps, "exchange", timed_exchange):
+        for b in batches:
+            sync()
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, b)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+    res.update(losses=losses, ms=ms, exchange_s=ex_s, exchange_bytes=ex_bytes,
+               peak=torch.cuda.max_memory_allocated(device),
+               t_steps=time.time())
+    del state
+    # the params the steps started from, drawn again from their seed
+    start = leaves(held(mesh_train_setup(kind, device)[3]))
+    worst_g = worst_u = worst_p = 0.0
+    for path, g, w in zip(paths, grads, ref["grads"]):
+        w = sliced(w, path, g)
+        worst_g = max(worst_g, float((g - w).abs().max() / w.abs().max()))
+    for path, p, p0, w in zip(paths, leaves(params), start, ref["params"]):
+        w = sliced(w, path, p)
+        upd = torch.linalg.vector_norm(w - p0)
+        worst_u = max(worst_u, float(torch.linalg.vector_norm(p - w) / upd))
+        worst_p = max(worst_p, float((p - w).abs().max() / w.abs().max()))
+    res.update(grad_gap=worst_g, update_gap=worst_u, param_gap=worst_p,
+               held_values=sum(p.numel() for p in leaves(params)),
+               t_checked=time.time())
+    del params, grads, step, start
+    if kind == "ep":
+        # one step at the config's capacity factor, which drops slots
+        cfg, model, opt_cfg, params, batches = mesh_train_setup(
+            kind, device, MESH_EP_DROP_CF)
+        params = held(params)
+        state = init_state(opt_cfg, params)
+        drops = []
+        orig_ep = transformer.moe_ep_apply
+
+        def recording(*a, **kw):
+            st = {}
+            out = orig_ep(*a, stats=st, **kw)
+            drops.append(st["dropped"])
+            return out
+
+        with swapped(transformer, "moe_ep_apply", recording):
+            _, _, loss = steps.make_train_step(model, opt_cfg, ctx)(
+                params, state, batches[0])
+        # the forward's calls, one a layer (remat recomputes them)
+        fwd = drops[:cfg.n_layers]
+        res.update(drop_loss=float(loss), dropped=(
+            sum(d[0] for d in fwd), sum(d[1] for d in fwd)),
+            layers=cfg.n_layers, top_k=cfg.moe.top_k,
+            tokens=batches[0]["tokens"].numel() // mesh.size)
+    res["t_out"] = time.time()
+    return res
+
+
+def train_mesh_path(dev, card) -> None:
+    """Phase 23, after phase 22: the train step under a mesh, through
+    ``run_ranks``.  (a) llama3.2-1b at full width and depth,
+    data-parallel: a (4, 1) mesh over NCCL with four cards, else (2, 1)
+    over gloo on the one card (four ranks of f32 params, gradients and two
+    moments would not fit it), phase 17's B=8 S=256 global batch, 3 steps.
+    (b) granite-moe-1b-a400m at full width and depth with
+    ``impl="ep_a2a"`` on a (2, 2) mesh: the 32 experts over (data,
+    model), 8 a rank, B=8 S=512, 2 steps at capacity 4.0, then one step
+    at 1.25 with its dropped slots.  Each is held against the same steps
+    without a mesh in this process first: every rank's loss within
+    ``MESH_LOSS_RTOL``, the first step's gradient leaves within
+    ``MESH_GRAD_TOL`` of their largest, the params after the steps within
+    ``TRAIN_STATE_RTOL``'s update norm."""
+    import torch
+
+    from repro_torch.launch.mesh import default_transport, run_ranks
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    for kind in ("dp", "ep"):
+        t0 = time.perf_counter()
+        shape = ((4, 1) if kind == "dp" and cards >= 4 else
+                 (2, 1) if kind == "dp" else MESH_EP_SHAPE)
+        world = shape[0] * shape[1]
+        transport = default_transport(world, dev)
+        t_one = time.time()
+        ref = one_rank_steps(kind, dev)
+        t_call = time.time()
+        ranks, t_ranks = timed(lambda: run_ranks(
+            mesh_train_rank, world, kind, shape, ref, device=dev.type,
+            backend=transport, timeout=600))
+        label = (f"(a) {LLAMA} data-parallel" if kind == "dp" else
+                 f"(b) {GRANITE} expert-parallel (ep_a2a)")
+        for r in ranks:
+            gaps = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                        ref["losses"])]
+            if r["transport"] != transport or not max(gaps) <= \
+                    MESH_LOSS_RTOL:
+                raise AssertionError(f"phase 23 {label} rank {r['rank']} "
+                                     f"over {r['transport']}: losses "
+                                     f"{r['losses']}, one rank "
+                                     f"{ref['losses']}")
+            if not r["grad_gap"] <= MESH_GRAD_TOL:
+                raise AssertionError(f"phase 23 {label} rank {r['rank']}: a "
+                                     f"gradient leaf {r['grad_gap']:.3e} of "
+                                     f"its largest from the one-rank step")
+            if not r["update_gap"] <= TRAIN_STATE_RTOL[1]["updates"]:
+                raise AssertionError(f"phase 23 {label} rank {r['rank']}: a "
+                                     f"param leaf {r['update_gap']:.3e} of "
+                                     f"its update from the one-rank step")
+        slowest = [round(max(x), 3) for x in zip(*(r["ms"] for r in ranks))]
+        log(f"phase 23 {label}: mesh {shape} (data, model) over "
+            f"{transport}, {world} ranks, {cards} cards, {card}; "
+            f"{len(ref['losses'])} steps; losses a rank "
+            f"{[r['losses'] for r in ranks]}, one rank {ref['losses']}; "
+            f"largest gaps to the one-rank step: gradient "
+            f"{max(r['grad_gap'] for r in ranks):.3e} of a leaf's largest "
+            f"(tol {MESH_GRAD_TOL}), params "
+            f"{max(r['param_gap'] for r in ranks):.3e} of a leaf's largest, "
+            f"{max(r['update_gap'] for r in ranks):.3e} of a leaf's update "
+            f"norm (tol {TRAIN_STATE_RTOL[1]['updates']}); step ms a rank "
+            f"(slowest) {slowest}, one rank "
+            f"{[round(x, 3) for x in ref['ms']]}; exchange "
+            f"{[round(x, 3) for x in ranks[0]['exchange_s']]} s a step on "
+            f"rank 0, {ranks[0]['exchange_bytes'][0]} f32 bytes a rank a "
+            f"step; values held a rank "
+            f"{[r['held_values'] for r in ranks]}; peak device memory a "
+            f"rank {[r['peak'] for r in ranks]} bytes, one rank "
+            f"{ref['peak']}")
+        if kind == "ep":
+            drops = [r["dropped"] for r in ranks]
+            if not any(d[0] + d[1] for d in drops) or not all(
+                    np.isfinite(r["drop_loss"]) for r in ranks):
+                raise AssertionError(f"phase 23 {label} at capacity "
+                                     f"{MESH_EP_DROP_CF}: losses "
+                                     f"{[r['drop_loss'] for r in ranks]}, "
+                                     f"dropped {drops}")
+            log(f"phase 23 {label} at capacity {MESH_EP_DROP_CF}: one step, "
+                f"loss a rank {[r['drop_loss'] for r in ranks]}; dropped "
+                f"slots (send buffer, experts) a rank over the "
+                f"{ranks[0]['layers']} layers' forward {drops}, of "
+                f"{ranks[0]['tokens']} tokens x top-{ranks[0]['top_k']} a "
+                f"rank a layer")
+        del ref
+
+        def after(key):
+            return max(r[key] for r in ranks) - t_call
+
+        log(f"phase 23 {label}: {time.perf_counter() - t0:.1f} s; one rank "
+            f"{t_call - t_one:.1f} s; run_ranks {t_ranks:.1f} s: the ranks "
+            f"entered {after('t_in'):.1f} s after the call, ended their "
+            f"steps at {after('t_steps'):.1f} s, their checks at "
+            f"{after('t_checked'):.1f} s, left at {after('t_out'):.1f} s")
+    log(f"phase 23 wall {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
@@ -4445,6 +4820,9 @@ def main() -> int:
                              f"{at_internvl['ms']} ms is below its bound "
                              f"{at_internvl['bound_ms']}")
     cost_path(dev, card)
+    walks = start_dryrun()
+    train_mesh_path(dev, card)
+    finish_dryrun(walks)
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")
     log(json.dumps({"kernels": records}))

@@ -20,10 +20,11 @@ records its operand bytes and returns a ``meta`` tensor of its result.
 
 Serving cells walk ``attn_impl="cuda"``, the route the card runs (each
 hand-written kernel one op, recorded by its wrapper with its formula);
-train cells walk ``"xla"``, as training does.  A train step under a mesh
-of more than one rank is not ported (``steps.make_train_step`` raises):
-such a cell's status is ``not_ported`` with the reason, and its
-``memory.by_specs`` is still filled.
+train cells walk ``"xla"``, as training does.  A train cell walks rank
+0's step under the mesh: its block of the global batch, the forward and
+backward (the expert-parallel region's all-to-alls and gathers both
+ways) and the data-parallel gradient exchange, recorded under
+``all-reduce``.
 
 Each record, ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``,
 keeps the reference's keys where they have a counterpart (``status``,
@@ -34,9 +35,10 @@ per-rank bytes of the params, optimizer state, batch and caches that
 ``parallel.sharding``'s rules assign: the number comparable to the
 reference's sharded ``argument_size_in_bytes``.  ``memory.argument_bytes``
 is what the port holds on a rank: the parameters whole except the expert
-leaves, which the expert-parallel path cuts, and the global batch and
-caches.  The gap between the two is the tensor parallelism and ZeRO
-sharding that the port does not run (ROADMAP.md, Queue 1).
+leaves, which the expert-parallel path cuts, and the global batch (of
+which a train step computes on its block) and caches.  The gap between
+the two is the tensor parallelism and ZeRO sharding that the port does
+not run (ROADMAP.md, Queue 1).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape prefill_32k
@@ -132,14 +134,6 @@ def spec_bytes(tree, specs, mesh) -> int:
     return 0
 
 
-class NotPorted(NotImplementedError):
-    """A cell whose step the port does not run, with its ``by_specs``."""
-
-    def __init__(self, reason: str, by_specs: dict):
-        super().__init__(reason)
-        self.by_specs = by_specs
-
-
 def _cut_experts(params, ep_size: int):
     """``params`` with each MoE stack's routed expert leaves ``[L, E,
     ...]`` replaced by this rank's ``[L, E / ep_size, ...]``, as the
@@ -158,9 +152,7 @@ def build_cell(arch: str, shape: str, mesh, *, opt_bits: int = 0,
     """``(cfg, step, args, by_specs)`` for the cell: the step on the
     card's route and its arguments on ``meta``, ready to walk, and the
     per-rank bytes the sharding rules assign (params, opt_state, batch,
-    caches and their total).  Raises :class:`NotPorted` where the port
-    does not run the step (a train step under a mesh of more than one
-    rank).
+    caches and their total).
 
     opt_bits=0 means auto: 8-bit moment states when f32 states would not
     fit :data:`MOMENT_BUDGET` (params x 10 B / ranks), else f32.
@@ -201,11 +193,10 @@ def build_cell(arch: str, shape: str, mesh, *, opt_bits: int = 0,
         if ep_axis is not None:
             params = _cut_experts(params, _axis_size(mesh, ep_axis))
     if train:
-        try:
-            step = make_train_step(model, opt_cfg, ctx,
-                                   microbatches=microbatches)
-        except NotImplementedError as e:
-            raise NotPorted(str(e), by_specs) from e
+        # the optimizer state of the params as the rank holds them
+        opt_state = init_state(opt_cfg, params)
+        step = make_train_step(model, opt_cfg, ctx,
+                               microbatches=microbatches)
         args = (params, opt_state, batch)
     elif sspec.kind == "prefill":
         step = make_prefill_step(model, ctx)
@@ -235,15 +226,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool, *,
         mesh = make_dry_mesh(multi_pod)
         rec.update({"n_devices": mesh.size, "n_params": cfg.n_params(),
                     "n_active_params": cfg.n_active_params()})
-        try:
-            _, step, args, by_specs = build_cell(
-                arch, shape, mesh, opt_bits=opt_bits, extra_cfg=extra_cfg,
-                microbatches=microbatches)
-        except NotPorted as e:
-            rec.update({"status": "not_ported", "reason": str(e),
-                        "memory": {"by_specs": e.by_specs}})
-            _save(rec, save)
-            return rec
+        _, step, args, by_specs = build_cell(
+            arch, shape, mesh, opt_bits=opt_bits, extra_cfg=extra_cfg,
+            microbatches=microbatches)
         t1 = time.perf_counter()
         oc = op_cost(step, *args)
         t2 = time.perf_counter()

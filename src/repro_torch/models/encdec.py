@@ -36,7 +36,7 @@ import torch
 
 from ..compat import default_device
 from .config import ArchConfig
-from .layers import (attention_core, gqa_apply, gqa_params, mlp_apply,
+from .layers import (attention_core, gqa_apply, gqa_params, mlp_apply, mm,
                      mlp_params, normal, rmsnorm)
 from .transformer import (ParallelCtx, layer_cache, remat, rematerialised,
                           stacked, unstack, xent)
@@ -119,7 +119,7 @@ def encode(cfg: ArchConfig, params, frames):
 def _cross_attend(p, x, enc_kv, cfg: ArchConfig):
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.hd()
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    q = mm(x, p["wq"]).reshape(B, S, H, hd)
     k, v = enc_kv
     Sk = k.shape[1]
     # no impl: the reference's cross-attention always takes the plain
@@ -127,7 +127,7 @@ def _cross_attend(p, x, enc_kv, cfg: ArchConfig):
     out = attention_core(q, k, v, causal=False,
                          q_pos=torch.arange(S, device=x.device),
                          kv_pos=torch.arange(Sk, device=x.device))
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    return mm(out.reshape(B, S, H * hd), p["wo"])
 
 
 def dec_block(cfg: ArchConfig, p, h, enc_out, positions, cache=None):
@@ -139,8 +139,8 @@ def dec_block(cfg: ArchConfig, p, h, enc_out, positions, cache=None):
     a, nc = gqa_apply(p["attn"], rmsnorm(p["ln1"], h, cfg.rms_eps), cfg,
                       positions=positions, cache=cache)
     h = h + a
-    k = (enc_out @ p["xattn"]["wk"]).reshape(B, -1, H, hd)
-    v = (enc_out @ p["xattn"]["wv"]).reshape(B, -1, H, hd)
+    k = mm(enc_out, p["xattn"]["wk"]).reshape(B, -1, H, hd)
+    v = mm(enc_out, p["xattn"]["wv"]).reshape(B, -1, H, hd)
     h = h + _cross_attend(p["xattn"], rmsnorm(p["ln_x"], h, cfg.rms_eps),
                           (k, v), cfg)
     h = h + mlp_apply(p["mlp"], rmsnorm(p["ln2"], h, cfg.rms_eps), cfg.mlp)
@@ -167,7 +167,7 @@ def decode(cfg: ArchConfig, params, tokens, enc_out, *, caches=None,
     new_caches = None if caches is None else {**caches,
                                               "len": caches["len"] + S}
     x = rmsnorm(params["ln_f"], x, cfg.rms_eps)
-    return x @ params["unembed"], new_caches
+    return mm(x, params["unembed"]), new_caches
 
 
 def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,

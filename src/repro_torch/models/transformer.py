@@ -29,8 +29,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import default_device
-from ..parallel.sharding import (P, _axis_size, _fit_axis, gather_shards,
-                                 local_shard)
+from ..parallel.collectives import psum, pvary
+from ..parallel.sharding import (P, _axes, _axis_size, _fit_axis, dp_axes,
+                                 gather_shards, local_shard)
 from ..tree import leaves
 from .config import ArchConfig
 from .layers import (gqa_apply, gqa_params, mla_apply, mla_params,
@@ -57,6 +58,11 @@ class ParallelCtx:
     ep_size: int = 1
     mesh: Any = None
     dp_spec: Any = None      # partition spec entry for the batch dim
+    #: set by a train step under a mesh (``launch.steps``): the batch a
+    #: rank holds is its block of the global batch (dim 0 over the dp
+    #: axes), so the MoE region cuts tokens over 'model' only and
+    #: :func:`xent` divides by the global count of labels
+    dp_block: bool = False
 
 
 def stacked(n: int, draw: Callable[[], dict]) -> dict:
@@ -229,38 +235,66 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
     * no mesh: the grouped einsum dispatch, except that ``impl="ep_a2a"``
       at ``EP_MIN_TOKENS`` tokens or more takes the expert-parallel form
       at one shard;
-    * impl='ep_a2a' + mesh, at ``cfg.moe.ep_threshold`` tokens or more
-      and a sequence the 'model' axis divides: expert parallelism over
-      ``_fit_axis(("data", "model"), E)``.  This rank takes its token
-      block (batch over ``ctx.dp_spec``, sequence over 'model') and its
-      slice of the routed experts (``pmoe``'s global ``[E, ...]`` stacks
-      sliced by ``local_shard``, or already this rank's ``[E/ep, ...]``
-      as the storage sharding holds them), runs the routed experts only,
-      and the block outputs are all-gathered back to ``[B, S, d]`` on
-      every rank (GSPMD's ``out_specs``).  The shared expert is added
-      outside the region, on every rank.
+    * impl='ep_a2a' + mesh, at ``cfg.moe.ep_threshold`` tokens or more of
+      the global batch and a sequence the 'model' axis divides: expert
+      parallelism over ``_fit_axis(("data", "model"), E)``.  This rank
+      takes its token block (sequence over 'model', and batch over
+      ``ctx.dp_spec`` unless ``ctx.dp_block`` says the rank holds its
+      data block already) and its slice of the routed experts
+      (``pmoe``'s global ``[E, ...]`` stacks sliced by ``local_shard``,
+      or already this rank's ``[E/ep, ...]`` as the storage sharding
+      holds them; a train step under a mesh takes only the latter), runs
+      the routed experts only, and the block outputs are all-gathered
+      back to the rank's ``[B, S, d]`` (GSPMD's ``out_specs``).  The
+      shared expert is added outside the region, on every rank.
+
+    The backward is ``shard_map``'s transpose: the cuts and the gather
+    transpose into each other, the all-to-alls into themselves, and a
+    weight the region replicates over an axis its tokens are cut over
+    (the router; an expert slice that axis does not shard) has its
+    cotangent summed over that axis (``pvary``).
     """
     B, S, _ = h.shape
     mesh = None if ctx is None else ctx.mesh
-    ep_axis = ep_axis_for(cfg, B, S, mesh)
+    blocked = mesh is not None and ctx.dp_block
+    E = cfg.moe.n_experts
+    # the threshold reads the global token count, as the reference's does
+    B_global = B * _axis_size(mesh, dp_axes(mesh)) if blocked else B
+    ep_axis = ep_axis_for(cfg, B_global, S, mesh)
     if ep_axis is None:
+        if blocked and pmoe["wg"].shape[0] != E:
+            raise ValueError(f"moe/wg: {pmoe['wg'].shape[0]} of {E} experts "
+                             f"where the einsum form needs them all")
         if cfg.moe.impl == "ep_a2a" and mesh is None \
                 and B * S >= EP_MIN_TOKENS:
             # large token count without a mesh: still exercise the EP path
             return moe_ep_apply(pmoe, h, cfg)
         return moe_einsum_apply(pmoe, h, cfg)
-    E = cfg.moe.n_experts
     ep_size = _axis_size(mesh, ep_axis)
-    tok_spec = P(ctx.dp_spec, "model", None)
-    routed = {"router": pmoe["router"]}
+    tok_spec = P(None if blocked else ctx.dp_spec, "model", None)
+    tok_axes = set(_axes(tok_spec[0])) | {"model"}
+    w_spec = P(ep_axis, None, None)
+
+    def entering(w, spec):
+        axes = tuple(a for a in mesh.axis_names if a in tok_axes
+                     and a not in _axes(spec[0]) and mesh.shape[a] > 1)
+        return pvary(w, mesh.group(axes)) if axes else w
+
+    routed = {"router": entering(pmoe["router"], P(None, None))}
     for name in ("wg", "wu", "wd"):
         w = pmoe[name]
         if w.shape[0] == E:
-            w = local_shard(w, P(ep_axis, None, None), mesh)
+            if blocked:
+                raise ValueError(
+                    f"moe/{name}: a global stack of {E} experts under a "
+                    f"training mesh; a rank holds and updates its "
+                    f"{E // ep_size}, as the storage sharding "
+                    f"({w_spec}) holds them")
+            w = local_shard(w, w_spec, mesh)
         elif w.shape[0] != E // ep_size:
             raise ValueError(f"moe/{name}: {w.shape[0]} experts, neither "
                              f"{E} nor this rank's {E // ep_size}")
-        routed[name] = w
+        routed[name] = entering(w, w_spec)
     # routed experts only: the shared expert is added outside the region
     cfg_routed = cfg.replace(moe=dataclasses.replace(cfg.moe, n_shared=0))
     out = moe_ep_apply(routed, local_shard(h, tok_spec, mesh), cfg_routed,
@@ -352,16 +386,22 @@ def xent(logits, labels, ctx: ParallelCtx = ParallelCtx()):
     sharding device); here the gold logit is gathered, at an index
     clamped to 0 where the label is ``-1`` (whose one-hot row is all
     zeros), and the mask zeroes those terms.  The mean's denominator is
-    floored at 1, as the reference's is.  ``ctx`` is the reference's: with
-    a mesh it constrains the logits' layout (a GSPMD hint that changes no
-    value and is not ported), so it changes nothing here."""
-    del ctx
+    floored at 1, as the reference's is.  Under a mesh the reference
+    constrains the logits' layout (a GSPMD hint, not ported).  Where
+    ``ctx.dp_block`` says the rank holds its data block of the batch, the
+    denominator is the global count of labels (a sum over the dp axes)
+    and the result is the global loss, the sum of the ranks' parts
+    (``psum``, whose backward leaves each rank its own part's gradient)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     nll = (lse - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    if ctx is None or ctx.mesh is None or not ctx.dp_block:
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    dp = ctx.mesh.group(dp_axes(ctx.mesh))
+    count = psum(mask.sum(), dp)
+    return psum(nll.sum() / torch.clamp(count, min=1.0), dp)
 
 
 def loss_fn(cfg: ArchConfig, params, batch,

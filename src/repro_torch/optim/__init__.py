@@ -144,12 +144,15 @@ def _one(cfg: AdamWConfig, p, g, mv: MomentState, lr, clip, b1c, b2c):
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state):
+def apply_updates(cfg: AdamWConfig, params, grads, state, *, gnorm=None):
     """One AdamW step, in place; returns ``(params, state)``, the same
-    dicts."""
+    dicts.  ``gnorm``, the global gradient norm the clip reads, is the
+    norm of ``grads`` unless the caller holds only part of the gradient
+    (a rank's slice of a sharded leaf) and passes the whole's."""
     step = state["step"] + 1
     lr = lr_at(cfg, step)
-    gnorm = _global_norm(grads)
+    if gnorm is None:
+        gnorm = _global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1c = 1 - cfg.b1 ** step.float()
     b2c = 1 - cfg.b2 ** step.float()

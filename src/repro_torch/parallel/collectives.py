@@ -14,9 +14,10 @@ transport the caller named when it set up the process group:
 
 An axis of one rank has no process group and every collective on it is
 the identity (``ppermute`` gives zeros to a rank that receives nothing).
-``all_to_all`` and ``all_gather`` are forward-only (the port runs them in
-serving and in gradient exchange); ``ppermute`` and ``psum`` carry
-gradients, for training through the pipeline.
+``all_to_all``, ``ppermute``, ``psum`` and ``pvary`` carry gradients, with
+the transpose rules of ``shard_map`` (training through the pipeline and
+through the expert-parallel region); ``all_gather``, ``pmax`` and
+``psum_grads`` (the data-parallel gradient exchange) are forward-only.
 
 A group whose process group is :data:`DRY` (a dry mesh's, see
 ``launch.dryrun``) moves nothing: each collective takes ``meta`` tensors
@@ -77,13 +78,8 @@ def _out(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     return x.cpu().contiguous() if group.staged else x.contiguous()
 
 
-def all_to_all(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
-    """``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)``: ``x`` is
-    ``[n, ...]`` with row ``i`` bound for rank ``i``; row ``i`` of the
-    result came from rank ``i``."""
-    if x.shape[0] != group.size:
-        raise ValueError(f"all_to_all over {group.size} ranks needs a "
-                         f"leading dim of {group.size}, not {x.shape[0]}")
+def _exchange(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """The dim-0 all-to-all itself (forward only)."""
     if group.pg is None:
         return x
     if group.pg is DRY:
@@ -92,6 +88,31 @@ def all_to_all(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group.pg)
     return out.to(x.device)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The dim-0 exchange is its own transpose: row ``i`` of the cotangent
+    goes back to rank ``i`` by the same all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g.contiguous(), ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, 0, 0, tiled=False)``: ``x`` is
+    ``[n, ...]`` with row ``i`` bound for rank ``i``; row ``i`` of the
+    result came from rank ``i``.  Differentiable: its backward is the same
+    exchange of the cotangent, which a dry group records too."""
+    if x.shape[0] != group.size:
+        raise ValueError(f"all_to_all over {group.size} ranks needs a "
+                         f"leading dim of {group.size}, not {x.shape[0]}")
+    return _AllToAll.apply(x, group)
 
 
 def all_gather(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
@@ -112,7 +133,8 @@ def _all_reduce(x: torch.Tensor, group: AxisGroup, op) -> torch.Tensor:
         return x
     if group.pg is DRY:
         return _dry(x, group, "all-reduce")
-    buf = x.cpu() if group.staged else x.clone()
+    buf = x.to("cpu" if group.staged else x.device, copy=True,
+               memory_format=torch.contiguous_format)
     dist.all_reduce(buf, op=op, group=group.pg)
     return buf.to(x.device)
 
@@ -138,6 +160,56 @@ class _Psum(torch.autograd.Function):
 def psum(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
     """``jax.lax.psum(x, axis)``, differentiable as above."""
     return _Psum.apply(x, group)
+
+
+class _Pvary(torch.autograd.Function):
+    """The transpose of :class:`_Psum`: a value replicated over the axis
+    enters computation that differs from rank to rank (the identity), and
+    its cotangent, each rank's part, is summed over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group, dist.ReduceOp.SUM), None
+
+
+def pvary(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:
+    """``jax.lax.pvary(x, axis)``: ``x`` unchanged; the backward sums the
+    ranks' cotangents over the axis (what ``shard_map``'s transpose does
+    to an input it replicates over an axis that the computation varies
+    over).  Every rank of the axis must reach the backward."""
+    if group.pg is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Pvary.apply(x, group)
+
+
+def psum_grads(xs: Sequence[torch.Tensor], group: AxisGroup) -> list:
+    """The data-parallel gradient exchange (forward only): each of the
+    ranks' ``xs`` summed over ``group`` (an axis or an axis tuple such as
+    ``("pod", "data")``) in f32 and returned in its own dtype.  Every
+    leaf's all-reduce is put in flight as soon as its operand is ready
+    (under gloo, once it is on the host), and all are waited for at the
+    end."""
+    if group.pg is None:
+        return list(xs)
+    if group.pg is DRY:
+        return [_dry(x.float(), group, "all-reduce").to(x.dtype) for x in xs]
+    bufs, works = [], []
+    for x in xs:
+        # a fresh contiguous f32 copy (a leaf's gradient may be a
+        # transposed view, which NCCL refuses), on the host under gloo
+        buf = x.to("cpu" if group.staged else x.device, torch.float32,
+                   copy=True, memory_format=torch.contiguous_format)
+        works.append(dist.all_reduce(buf, op=dist.ReduceOp.SUM,
+                                     group=group.pg, async_op=True))
+        bufs.append(buf)
+    for work in works:
+        work.wait()
+    return [b.to(x.device, x.dtype) for b, x in zip(bufs, xs)]
 
 
 def pmax(x: torch.Tensor, group: AxisGroup) -> torch.Tensor:

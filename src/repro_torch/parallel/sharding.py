@@ -19,7 +19,8 @@ Every function takes any ``mesh`` with a ``shape`` dict and
 ``axis_names`` (the port's :class:`~repro_torch.launch.mesh.Mesh`, or a
 stand-in).  :func:`to_placements` gives ``torch.distributed.tensor``
 placements per mesh dim, and :func:`local_shard` / :func:`gather_shards`
-cut this rank's block out of a replicated tensor and put it back.
+cut this rank's block out of a replicated tensor and put it back, each
+differentiable with ``shard_map``'s transpose rule.
 """
 from __future__ import annotations
 
@@ -289,11 +290,7 @@ def to_placements(tree_specs: PyTree, mesh) -> PyTree:
         (), tree_specs)
 
 
-def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """This rank's block of ``t`` (replicated, full shape) under ``spec``:
-    dim ``d`` is cut into ``prod(axis sizes)`` equal blocks and this rank
-    takes the one at its (major-to-minor) index on the entry's axes.  A
-    view, no copy."""
+def _cut(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     for d, entry in enumerate(spec):
         axes = _axes(entry)
         if not axes:
@@ -310,10 +307,7 @@ def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return t
 
 
-def gather_shards(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
-    """The inverse of :func:`local_shard`: every rank's block under
-    ``spec``, all-gathered back to the full tensor on every rank (what
-    GSPMD does with a ``shard_map``'s replicated ``out_specs``)."""
+def _gather(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     from .collectives import all_gather
 
     for d, entry in enumerate(spec):
@@ -322,3 +316,52 @@ def gather_shards(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         parts = all_gather(block, mesh.group(entry))     # [n, ...]
         block = torch.cat(list(parts.unbind(0)), dim=d)
     return block
+
+
+class _LocalShard(torch.autograd.Function):
+    """A replicated value cut into this rank's block.  Every rank on the
+    axes goes on computing with the whole value outside the region, so
+    each needs the whole cotangent: the blocks' cotangents all-gathered."""
+
+    @staticmethod
+    def forward(ctx, t, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _cut(t, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.spec, ctx.mesh), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    """The blocks gathered into a replicated value.  Every rank on the axes
+    computes the same loss from it, so a rank's cotangent is already the
+    whole of it: each block takes its own part, summed over nothing (as
+    :class:`~repro_torch.parallel.collectives._Psum` reasons)."""
+
+    @staticmethod
+    def forward(ctx, block, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return _gather(block, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cut(g, ctx.spec, ctx.mesh), None, None
+
+
+def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` (replicated, full shape) under ``spec``:
+    dim ``d`` is cut into ``prod(axis sizes)`` equal blocks and this rank
+    takes the one at its (major-to-minor) index on the entry's axes.  A
+    view, no copy.  Differentiable with ``shard_map``'s transpose (the
+    blocks' cotangents all-gathered, see :class:`_LocalShard`)."""
+    return _LocalShard.apply(t, spec, mesh)
+
+
+def gather_shards(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The inverse of :func:`local_shard`: every rank's block under
+    ``spec``, all-gathered back to the full tensor on every rank (what
+    GSPMD does with a ``shard_map``'s replicated ``out_specs``).
+    Differentiable: the backward takes this rank's block of the cotangent
+    (see :class:`_GatherShards`)."""
+    return _GatherShards.apply(block, spec, mesh)

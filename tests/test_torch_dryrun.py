@@ -4,17 +4,21 @@ the CPU.
 * ``run_cell(..., save=False)`` on each family's smoke config at a 2x2
   stand-in mesh, at shapes cut to a smoke size: serving cells walk the
   card's route (each hand-written kernel one op), the expert-parallel
-  cell's collectives are recorded, train cells are ``not_ported``.
+  cell's collectives are recorded, train cells walk rank 0's step (the
+  plain route, its block of the batch) and record the gradient
+  exchange's all-reduce.
 * ``memory.by_specs`` for llama3.2-1b and deepseek-v3-671b at both
   production meshes, byte for byte against the per-rank bytes of the
   reference's own ``param_specs``/``opt_state_specs``/``batch_specs`` on
   ``jax.eval_shape`` shapes (the reference on ``AbstractMesh``es).
-* ``applicable``'s skips with the reference's reasons, the
-  ``not_ported`` train cell, ``main()``'s exit code and summary, a dry
-  group refusing a CPU tensor, and ``make_train_step`` refusing a
-  two-rank mesh.
+* ``applicable``'s skips with the reference's reasons, llama3.2-1b's
+  full-width train cell on the 512-rank stand-in, ``main()``'s exit code
+  and summary, a dry group refusing a CPU tensor, and a train step on a
+  two-rank data-parallel stand-in exchanging the whole gradient.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -35,6 +39,7 @@ from repro_torch.configs import ShapeSpec  # noqa: E402
 from repro_torch.launch import dryrun, steps  # noqa: E402
 from repro_torch.models import ParallelCtx, build_model  # noqa: E402
 from repro_torch.parallel import collectives  # noqa: E402
+from repro_torch.tree import leaves  # noqa: E402
 
 #: the four shapes cut to a smoke size (prefill: 4,096 tokens, the
 #: deepseek smoke config's expert-parallel threshold)
@@ -63,6 +68,13 @@ def smoke(monkeypatch):
                         dryrun.DryMesh((2, 2), ("data", "model")))
 
 
+def _values(cfg) -> int:
+    """The values in ``cfg``'s parameter tree (its gradient's)."""
+    params = build_model(cfg).init(torch.Generator(), torch.float32,
+                                   device="meta")
+    return sum(t.numel() for t in leaves(params))
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_run_cell_walks_each_family_at_a_stand_in_mesh(smoke, arch):
     cfg = dryrun.get_config(arch)
@@ -71,10 +83,6 @@ def test_run_cell_walks_each_family_at_a_stand_in_mesh(smoke, arch):
         ok, why = configs.applicable(cfg, shape)
         if not ok:
             assert (rec["status"], rec["reason"]) == ("skipped", why)
-            continue
-        if sspec.kind == "train":
-            assert rec["status"] == "not_ported", rec
-            assert rec["memory"]["by_specs"]["opt_state"] > 0
             continue
         assert rec["status"] == "ok", rec.get("traceback")
         oc = rec["op_cost"]
@@ -92,9 +100,16 @@ def test_run_cell_walks_each_family_at_a_stand_in_mesh(smoke, arch):
             if arch != "deepseek-v3-671b":
                 assert oc["kernels"].get(kernel, 0) > 0, oc["kernels"]
         else:
-            assert oc["kernels"] == {}      # decode: the plain step
+            # decode and train: the plain steps
+            assert oc["kernels"] == {}
         coll = rec["collectives"]["bytes"]
-        if arch == "deepseek-v3-671b" and sspec.kind == "prefill":
+        if sspec.kind == "train":
+            # every gradient leaf summed over 'data' in f32, the loss's
+            # two scalars: no expert-parallel region at these 512 tokens
+            assert mem["by_specs"]["opt_state"] > 0
+            assert rec["collectives"]["counts"].get("all-to-all", 0) == 0
+            assert coll["all-reduce"] == 4 * _values(cfg) + 8, coll
+        elif arch == "deepseek-v3-671b" and sspec.kind == "prefill":
             # the expert-parallel region: three all-to-alls over the 4
             # ranks, the block all-gathered over data then model
             assert rec["collectives"]["counts"]["all-to-all"] == 3 * (
@@ -131,9 +146,7 @@ def test_by_specs_equal_the_references_spec_bytes(arch):
     for multi_pod in (False, True):
         mesh = dryrun.make_dry_mesh(multi_pod)
         rmesh = AbstractMesh(tuple(mesh.shape.values()), mesh.axis_names)
-        rec = dryrun.run_cell(arch, "train_4k", multi_pod, save=False)
-        assert rec["status"] == "not_ported"
-        got = rec["memory"]["by_specs"]
+        got = dryrun.build_cell(arch, "train_4k", mesh)[3]
         bits = 8 if rcfg.n_params() * 10 / mesh.size > \
             dryrun.MOMENT_BUDGET else 32
         ropt = roptim.AdamWConfig(state_bits=bits)
@@ -164,13 +177,25 @@ def test_applicable_skips_with_the_references_reasons():
         if configs.applicable(configs.REGISTRY[a], "long_500k")[0]}
 
 
-def test_train_cell_is_not_ported_with_the_reason():
+def test_train_cell_is_not_ported_with_the_reason(monkeypatch):
+    """Once refused as not ported, llama3.2-1b's train cell on the
+    512-rank stand-in now walks rank 0's step: its block of 8 of the 256
+    rows, and every gradient leaf exchanged over ("pod", "data") in f32
+    (the loss's two scalars beside them).  The sequence is cut to 1,024
+    (the direct attention, not the chunked loop's many ops), which moves
+    no exchanged byte."""
+    monkeypatch.setitem(dryrun.SHAPES, "train_4k",
+                        ShapeSpec("train_4k", 1024, 256, "train"))
     rec = dryrun.run_cell("llama3.2-1b", "train_4k", True, save=False)
-    assert rec["status"] == "not_ported"
-    assert "512 ranks" in rec["reason"] and "ROADMAP" in rec["reason"]
-    assert rec["n_devices"] == 512 and "op_cost" not in rec
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["n_devices"] == 512 and rec["op_cost"]["flops"] > 0
     assert set(rec["memory"]["by_specs"]) == {"params", "opt_state",
                                               "batch", "total"}
+    cfg = configs.get_config("llama3.2-1b")
+    assert rec["collectives"]["bytes"]["all-reduce"] == 4 * _values(cfg) + 8
+    assert rec["collectives"]["counts"]["all-reduce"] == len(leaves(
+        build_model(cfg).init(torch.Generator(), torch.float32,
+                              device="meta"))) + 2
 
 
 def test_main_exit_code_and_records(smoke, monkeypatch, tmp_path, capsys):
@@ -211,14 +236,30 @@ def test_dry_group_refuses_a_cpu_tensor():
 
 
 def test_train_step_refuses_a_two_rank_mesh():
+    """Once refused, a train step on a two-rank data-parallel stand-in
+    (``DryMesh((2, 1))``) now walks on ``meta``: rank 0 takes its 2 of the
+    4 rows, and the exchange all-reduces the whole unsharded gradient, in
+    f32, beside the loss's two scalars (its label count and its value)."""
+    from repro_torch.launch.op_cost import op_cost
+
     cfg = configs.get_config("llama3.2-1b").smoke_config()
     mesh = dryrun.DryMesh((2, 1), ("data", "model"))
     model, opt = build_model(cfg), optim.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="2 ranks is not ported"):
-        steps.make_train_step(model, opt, ParallelCtx(mesh=mesh),
-                              microbatches=1)
-    one = dryrun.DryMesh((1, 1), ("data", "model"))
-    assert callable(steps.make_train_step(model, opt, ParallelCtx(mesh=one)))
+    meta = torch.device("meta")
+    params = model.init(torch.Generator(), torch.float32, meta)
+    batch = {k: torch.empty((4, 32), dtype=torch.int64, device=meta)
+             for k in ("tokens", "labels")}
+    seen = []
+    loss = model.loss
+    model = dataclasses.replace(model, loss=lambda p, b, ctx: (
+        seen.append(b["tokens"].shape), loss(p, b, ctx))[1])
+    step = steps.make_train_step(model, opt, ParallelCtx(mesh=mesh),
+                                 microbatches=1)
+    oc = op_cost(step, params, optim.init_state(opt, params), batch)
+    assert seen == [(2, 32)]
+    assert oc["collective_bytes"]["all-reduce"] == 4 * _values(cfg) + 8
+    assert oc["collective_counts"]["all-reduce"] == len(leaves(params)) + 2
+    assert oc["collective_total"] == oc["collective_bytes"]["all-reduce"]
 
 
 def test_meta_init_draws_nothing():

@@ -8,7 +8,8 @@ under ``jax.jit``:
 
 * ``encode`` (and its positions tiled past their rows), ``decode`` and
   ``forward`` logits on ``"xla"`` within 2e-4; ``encode`` on bf16 params
-  with f32 frames, which promotes to f32 as the reference's ``x @ W``;
+  with f32 frames, which promotes to f32 as the reference's ``x @ W``,
+  and ``forward`` on them, whose logits are bf16 as the reference's;
 * ``"cuda"`` against the reference's ``"pallas"`` at a text length of
   128 and 256 frames: only the decoder's causal self-attention reaches
   ``kops.flash_attention`` in either package (the encoder's is
@@ -160,6 +161,29 @@ def test_encode_promotes_f32_frames_into_bf16_weights():
     got = encdec.encode(pcfg, params, _t(f))
     assert want.dtype == jnp.float32 and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
+def test_forward_of_bf16_weights_and_f32_frames_matches_reference():
+    """bf16 weights and f32 frames through the whole forward: the encoder
+    output is f32, the decoder's products with it (cross-attention K/V)
+    promote as ``jnp.matmul`` does, the attention returns its query's
+    bf16, and the logits are bf16 as the reference's are, within the
+    bf16 tolerance of ``tests/test_torch_flash_attention.py`` (2e-2) of
+    the largest logit: the two packages round their bf16 intermediates at
+    other points (XLA keeps a fusion's temporaries in f32), which moves a
+    logit by a few of its bf16 steps."""
+    rcfg = rconfigs.REGISTRY[WHISPER].smoke_config()
+    rparams = jax.jit(lambda k: ref_build(rcfg).init(k, jnp.bfloat16))(
+        jax.random.PRNGKey(0))
+    params, pcfg = convert.params_from_reference(
+        jax.tree.map(np.asarray, rparams), rcfg, device="cpu")
+    toks, f = _tokens(rcfg.vocab, B, S), _frames(rcfg, B)
+    want = _ref_forward(rcfg)(rparams, jnp.asarray(toks), jnp.asarray(f))
+    got, _ = build_model(pcfg).forward(params, _t(toks), extra_embeds=_t(f))
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2 * np.abs(want).max())
 
 
 def test_decode_and_forward_match_reference(ref):
