@@ -17,7 +17,9 @@ f32 weights drawn from a seed.  The training path: llama3.2-1b and
 whisper-tiny at full width, all three dense-or-recurrent families at tiny
 width, and under meshes llama3.2-1b data-parallel and
 granite-moe-1b-a400m expert-parallel at full width and depth.
-Parallelism: four ranks of ``torch.distributed``.
+Parallelism: four ranks of ``torch.distributed``, and tensor-parallel
+serving of internvl2-26b (all 48 layers with four cards) and
+llama3.2-1b.
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
@@ -51,7 +53,8 @@ Parallelism: four ranks of ``torch.distributed``.
    the card, in f32 and bf16, at the reference's test shapes (SSD's
    state handoff too) and at the serving path's shapes (flash's at
    llama3.2-1b's, granite-moe-1b-a400m's, whisper-tiny's and
-   internvl2-26b's prefill layers; WKV6's also with
+   internvl2-26b's prefill layers and phase 24's per-rank layers; WKV6's
+   also with
    decays of exactly 0 and 1, a sequence shorter than its stretch and
    D=128);
 10. llama3.2-1b: ``make_prefill_step`` at B=2, S=4096 through the flash
@@ -227,9 +230,10 @@ Parallelism: four ranks of ``torch.distributed``.
     launches and the walk's peak beside ``max_memory_allocated``; then
     ``launch/dryrun.py``'s cells of ``--all --single-pod`` on ``meta``
     (the train cells among them, rank 0's step under the mesh) on a pool
-    of three spawned processes that walk while phase 23 runs, less the
-    four whose walk takes over a minute (``DRYRUN_LEFT_OUT``), none
-    failing, read after phase 23.
+    of three spawned processes, started before phase 17 and walking
+    beside phases 17-22 (so that phases 23 and 24 find the host's cores
+    free), less the four whose walk takes over a minute
+    (``DRYRUN_LEFT_OUT``), none failing, read after phase 24.
 23. the train step under a mesh, after phase 22, through ``run_ranks``
     (no kernel is on a training path): (a) llama3.2-1b at full width and
     depth, data-parallel, on a (4, 1) (data, model) mesh over NCCL when
@@ -243,7 +247,31 @@ Parallelism: four ranks of ``torch.distributed``.
     within 1e-4 of their largest, the params after the steps within
     ``TRAIN_STATE_RTOL``'s update norm; logged with the transport, the
     card count, step ms, the exchange's seconds and bytes, each rank's
-    peak memory and (b)'s dropped slots at 1.25.
+    peak memory and (b)'s dropped slots at 1.25.  On one card (a) runs
+    llama3.2-1b at 8 of its 16 layers and (b) granite at 8 of its 24
+    (the depth cuts logged), so that the script keeps its time limit with
+    phase 24 beside it.
+24. tensor-parallel serving, after phase 23, through one ``run_ranks``
+    call of four ranks (NCCL with four cards, else gloo on the one card;
+    the transport and the card count logged), each rank drawing its
+    params as ``param_specs`` cuts them over 'model' one layer at a time
+    (``model.init(..., mesh=)``), f32, ``attn_impl="cuda"``: (a)
+    internvl2-26b, every width as published, cut to 8 layers, on a (1, 4)
+    mesh: ``make_prefill_step`` at B=2, S=4096 (256 patches + 3,840 text
+    tokens) against the one-rank step of the same params run first in
+    this process (and freed before the ranks start), the serve loop (B=4,
+    the patches and a 512-token prompt, 32 tokens) with each decode step
+    teacher-forced on the one-rank tokens against its logits, and the
+    greedy tokens that agree; (b) the same two at all 48 layers with four
+    cards (12 on one card, the depth cut logged), its decode held against
+    the tensor-parallel forward over prefix, prompt and generated tokens;
+    (c) llama3.2-1b at full width and depth on (2, 2), its prefill step
+    against the one-rank step.  Each within ``MODEL_TOL``, with each
+    rank's held param bytes equal to ``param_specs``', its peak memory,
+    prefill and decode ms, all-reduces and flash launches (one a layer on
+    every rank, counted into flash's record; its plain version refused);
+    the kernel at internvl2-26b's per-rank shape (q ``[2,12,4096,128]``,
+    k/v ``[2,2,4096,128]``) timed against its bound.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -348,17 +376,21 @@ SERVE_B, SERVE_LP, SERVE_G = 4, 512, 32  # the serve loop
 #: shapes, then llama3.2-1b's prefill layer, a non-causal Sq != Skv, a
 #: length that is not a multiple of the kernel's 64-row tiles,
 #: granite-moe-1b-a400m's prefill layer, whisper-tiny's decoder
-#: self-attention in its prefill step (G = 1) and internvl2-26b's prefill
-#: layer (head dim 128, G = 6)
+#: self-attention in its prefill step (G = 1), internvl2-26b's prefill
+#: layer (head dim 128, G = 6) and phase 24's per-rank layers
 FLASH_CASES = [
     (1, 2, 2, 128, 128, 64, True), (2, 4, 2, 256, 256, 64, True),
     (1, 3, 1, 384, 384, 128, True), (1, 2, 2, 128, 256, 64, False),
     (2, 32, 8, 4096, 4096, 64, True), (2, 32, 8, 512, 2048, 64, False),
     (1, 2, 1, 100, 100, 64, True), (2, 16, 8, 4096, 4096, 64, True),
     (2, 6, 6, 4096, 4096, 64, True), (2, 48, 8, 4096, 4096, 128, True),
+    (2, 12, 2, 4096, 4096, 128, True), (1, 16, 4, 4096, 4096, 64, True),
 ]
 FLASH_PATH, FLASH_GRANITE, FLASH_WHISPER, FLASH_INTERNVL = (
     FLASH_CASES[4], FLASH_CASES[7], FLASH_CASES[8], FLASH_CASES[9])
+#: phase 24's per-rank shapes: internvl2-26b's 12 query and 2 kv heads on
+#: (1, 4), llama3.2-1b's row block, 16 and 4 heads, on (2, 2)
+FLASH_INTERNVL_TP, FLASH_LLAMA_TP = FLASH_CASES[10], FLASH_CASES[11]
 #: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
 #: shapes, then rwkv6-1.6b's serve prefill with and without a state and
 #: its make_prefill_step, then a sequence shorter than the kernel's
@@ -1548,6 +1580,10 @@ def check_kernels(dev) -> dict:
                 path_err["flash_attention_hm_whisper"] = err
             if case == FLASH_INTERNVL and dtype == torch.float32:
                 path_err["flash_attention_hm_internvl"] = err
+            if case == FLASH_INTERNVL_TP and dtype == torch.float32:
+                path_err["flash_attention_hm_internvl_tp"] = err
+            if case == FLASH_LLAMA_TP and dtype == torch.float32:
+                path_err["flash_attention_hm_llama_tp"] = err
         log(f"phase 9 flash_attention {tname} == plain version at "
             f"{len(FLASH_CASES)} shapes (B,H,Hkv,Sq,Skv,D,causal) "
             f"{FLASH_CASES}: max abs err {[f'{e:.3e}' for e in errs]} "
@@ -3792,10 +3828,10 @@ def parallel_path(dev, card) -> dict:
 #: slots with the serve loop's prompt in it
 COST_DECODE_B, COST_DECODE_SLOTS = SERVE_B, SERVE_LP + SERVE_G
 COST_REPS = 3                           # timed runs of each step
-#: cells of ``dryrun --all --single-pod`` phase 22 leaves out, those whose
-#: walk on a CPU took over a minute (PERF.md, PRs 30 and 31): the two
-#: prefills' attention runs the plain chunked loop on the card's route
-#: too (deepseek-v3-671b's MLA head dims, zamba2-7b's sliding window);
+#: cells of ``dryrun --all --single-pod`` phase 22 leaves out: those whose
+#: walk on a CPU took over a minute (PERF.md): the two prefills'
+#: attention runs the plain chunked loop on the card's route too
+#: (deepseek-v3-671b's MLA head dims, zamba2-7b's sliding window);
 #: rwkv6-1.6b's train step the plain WKV6 recurrence, a Python loop over
 #: 4,096 steps a layer, forward, recomputed and backward; deepseek's train
 #: step its 61 layers
@@ -3805,8 +3841,8 @@ DRYRUN_LEFT_OUT = {
     ("rwkv6-1.6b", "train_4k"): "1,246 s walk",
     ("deepseek-v3-671b", "train_4k"): "57-68 s walk",
 }
-#: processes the dry run's cells walk on (spawned) beside phase 23, which
-#: keeps the other cores
+#: processes the dry run's cells walk on (spawned) beside phases 17-22,
+#: which keeps the other cores
 DRYRUN_WORKERS = 3
 #: what the card's count and the meta walk must agree on
 COUNTED = ("flops", "bytes_accessed", "launches", "kernels")
@@ -3891,7 +3927,7 @@ def cost_path(dev, card) -> None:
     profiler's CUDA kernels beside the counted launches, and the walk's
     peak beside ``torch.cuda.max_memory_allocated()``.  (c), ``python -m
     repro_torch.launch.dryrun --all --single-pod``'s cells, is walked
-    beside phase 23 (:func:`start_dryrun`, :func:`finish_dryrun`)."""
+    from phase 17 on (:func:`start_dryrun`, :func:`finish_dryrun`)."""
     import torch
 
     from repro_torch.launch.op_cost import op_cost
@@ -3940,21 +3976,25 @@ def cost_path(dev, card) -> None:
             f"({max_alloc / 2**30:.2f} GiB); {card}")
 
     log(f"phase 22: {time.perf_counter() - t_phase:.1f} s on {card}, its "
-        f"dry run to come beside phase 23")
+        f"dry run walking since phase 17")
 
 
 def start_dryrun():
     """Phase 22 (c), started: ``dryrun --all --single-pod``'s cells on
     ``meta``, less :data:`DRYRUN_LEFT_OUT`, walked on a pool of
-    :data:`DRYRUN_WORKERS` spawned processes while phase 23 runs (its
-    ranks wait on the card and the transport, the walks on the host's
-    cores).  Returns what :func:`finish_dryrun` reads."""
-    from repro_torch.configs import REGISTRY, SHAPES
+    :data:`DRYRUN_WORKERS` spawned processes while phases 17-22 run on
+    the card (the walks take the host's other cores, which phases 23's
+    and 24's ranks then find free).  Returns what :func:`finish_dryrun`
+    reads."""
+    from repro_torch.configs import REGISTRY, SHAPES, get_config
 
-    # the train cells, the longest walks, first
+    # the train cells, the longest walks, first, the deepest first among
+    # them (a train walk's time grows with the layers), so that the
+    # pool's last walks are short ones
     cells = sorted(((a, sh) for a in sorted(REGISTRY) for sh in SHAPES
                     if (a, sh) not in DRYRUN_LEFT_OUT),
-                   key=lambda c: SHAPES[c[1]].kind != "train")
+                   key=lambda c: (SHAPES[c[1]].kind != "train",
+                                  -get_config(c[0]).n_layers))
     workers = min(DRYRUN_WORKERS, os.cpu_count() or 1)
     pool = concurrent.futures.ProcessPoolExecutor(
         workers, mp_context=multiprocessing.get_context("spawn"))
@@ -3988,7 +4028,7 @@ def finish_dryrun(started) -> None:
         + " ".join(f"{k}={counts[k]}" for k in ("ok", "skipped",
                                                 "not_ported", "error"))
         + f" in {time.perf_counter() - t0:.1f} s on {workers} processes "
-        f"beside phase 23")
+        f"from phase 17 on (read after phase 24)")
 
 
 # ------------------------------------- phase 23: the train step under a mesh
@@ -3999,6 +4039,9 @@ MESH_TRAIN_STEPS = 3                    # (a): llama3.2-1b, data-parallel
 MESH_EP_B, MESH_EP_S, MESH_EP_STEPS = 8, 512, 2
 MESH_EP_CF, MESH_EP_DROP_CF = 4.0, 1.25
 MESH_EP_SHAPE = (2, 2)                  # 32 experts, 8 a rank
+#: on one card, where the exchanges go through the host: (a) at 8 of
+#: llama3.2-1b's 16 layers, (b) at 8 of granite's 24 (all with four cards)
+MESH_DP_LAYERS_ONE_CARD = MESH_EP_LAYERS_ONE_CARD = 8
 MESH_SEED = 2400
 MESH_LOSS_RTOL = 1e-5
 MESH_GRAD_TOL = 1e-4                    # of each gradient leaf's largest
@@ -4018,13 +4061,18 @@ def mesh_train_setup(kind: str, dev, cf: float = MESH_EP_CF):
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
 
+    one_card = torch.cuda.device_count() < 4
     if kind == "dp":
         cfg = get_config(LLAMA).replace(attn_impl="xla")
+        if one_card:
+            cfg = cfg.replace(n_layers=MESH_DP_LAYERS_ONE_CARD)
         B, S, n = TRAIN_B, TRAIN_S, MESH_TRAIN_STEPS
     else:
         cfg = get_config(GRANITE)
         cfg = cfg.replace(attn_impl="xla", moe=dataclasses.replace(
             cfg.moe, impl="ep_a2a", capacity_factor=cf))
+        if one_card:
+            cfg = cfg.replace(n_layers=MESH_EP_LAYERS_ONE_CARD)
         B, S, n = MESH_EP_B, MESH_EP_S, MESH_EP_STEPS
     model = build_model(cfg)
     opt_cfg = AdamWConfig(lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
@@ -4210,11 +4258,13 @@ def mesh_train_rank(device, kind: str, shape, ref: dict) -> dict:
 
 def train_mesh_path(dev, card) -> None:
     """Phase 23, after phase 22: the train step under a mesh, through
-    ``run_ranks``.  (a) llama3.2-1b at full width and depth,
+    ``run_ranks``.  (a) llama3.2-1b at full width and depth (8 of its 16
+    layers on one card, :data:`MESH_DP_LAYERS_ONE_CARD`),
     data-parallel: a (4, 1) mesh over NCCL with four cards, else (2, 1)
     over gloo on the one card (four ranks of f32 params, gradients and two
     moments would not fit it), phase 17's B=8 S=256 global batch, 3 steps.
-    (b) granite-moe-1b-a400m at full width and depth with
+    (b) granite-moe-1b-a400m at full width and depth (8 of its 24
+    layers on one card, :data:`MESH_EP_LAYERS_ONE_CARD`) with
     ``impl="ep_a2a"`` on a (2, 2) mesh: the 32 experts over (data,
     model), 8 a rank, B=8 S=512, 2 steps at capacity 4.0, then one step
     at 1.25 with its dropped slots.  Each is held against the same steps
@@ -4241,7 +4291,12 @@ def train_mesh_path(dev, card) -> None:
             mesh_train_rank, world, kind, shape, ref, device=dev.type,
             backend=transport, timeout=600))
         label = (f"(a) {LLAMA} data-parallel" if kind == "dp" else
-                 f"(b) {GRANITE} expert-parallel (ep_a2a)")
+                 f"(b) {GRANITE} expert-parallel (ep_a2a)") + (
+            "" if cards >= 4 else
+            f" at {MESH_DP_LAYERS_ONE_CARD} of 16 layers (depth cut on one "
+            f"card)" if kind == "dp" else
+            f" at {MESH_EP_LAYERS_ONE_CARD} of 24 layers (depth cut on one "
+            f"card)")
         for r in ranks:
             gaps = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
                                                         ref["losses"])]
@@ -4303,6 +4358,406 @@ def train_mesh_path(dev, card) -> None:
             f"steps at {after('t_steps'):.1f} s, their checks at "
             f"{after('t_checked'):.1f} s, left at {after('t_out'):.1f} s")
     log(f"phase 23 wall {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+# ----------------------------------- phase 24: tensor-parallel serving
+TP_RANKS = 4
+TP_MESH = (1, 4)                        # (a), (b): internvl2-26b, 'model' 4
+TP_LLAMA_MESH = (2, 2)                  # (c): llama3.2-1b
+#: (a) internvl2-26b with every width as published cut to 8 layers: 17.03
+#: GB of f32 weights whole, 7.67 GB a rank under param_specs on (1, 4),
+#: held against the one-rank run of the same params
+TP_VLM_DEPTH = 8
+#: (b) all 48 layers (23.27 GB a rank) with four cards; on one card,
+#: where the four ranks share its 80 GB, 12 (9.23 GB a rank)
+TP_VLM_LAYERS, TP_VLM_DEPTH_ONE_CARD = 48, 12
+TP_SEED = 2500
+
+
+def tp_vlm_inputs(cfg, dev) -> dict:
+    """(a)'s and (b)'s inputs, drawn on ``dev`` from ``TP_SEED + 1`` (the
+    same values on every card): the prefill step's batch (B=2, 256
+    patches and 3,840 text tokens, by ``configs.input_specs``) and the
+    serve loop's prompts ``[4, 512]`` and patches."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec, input_specs
+
+    gen = torch.Generator(dev).manual_seed(TP_SEED + 1)
+    spec = input_specs(cfg, ShapeSpec("prefill_step", PREFILL_S, PREFILL_B,
+                                      "prefill"), torch.float32)
+    P, d = cfg.frontend_seq, cfg.d_model
+
+    def prefix(b):
+        return FRAME_SCALE * torch.randn((b, P, d), generator=gen,
+                                         device=dev)
+
+    return {"prefill": {"tokens": torch.randint(
+                0, cfg.vocab, tuple(spec["tokens"].shape), generator=gen,
+                device=dev), "extra_embeds": prefix(PREFILL_B)},
+            "prompts": torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP),
+                                     generator=gen, device=dev),
+            "prefix": prefix(SERVE_B)}
+
+
+def tp_llama_batch(cfg, dev) -> dict:
+    """(c)'s global batch, drawn on ``dev`` from ``TP_SEED + 3``."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(TP_SEED + 3)
+    return {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_S),
+                                    generator=gen, device=dev)}
+
+
+def tp_references(dev) -> dict:
+    """Phase 24's one-rank runs in this process, each freed before the
+    ranks start: (a) internvl2-26b at 8 layers, its prefill step and the
+    serve loop (its tokens and each step's logits); (c) llama3.2-1b's
+    prefill step.  NumPy, for the ranks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(VLM).replace(n_layers=TP_VLM_DEPTH, attn_impl="cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(TP_SEED),
+                        torch.float32, dev)
+    inp = tp_vlm_inputs(cfg, dev)
+    with torch.no_grad():
+        prefill, t_prefill = timed(lambda: make_prefill_step(model)(
+            params, inp["prefill"]))
+        res = serve(cfg, gen=SERVE_G, device=dev, params=params,
+                    prompts=inp["prompts"], extra_embeds=inp["prefix"])
+    check_generated(res, cfg.vocab, f"phase 24 (a) {VLM} one rank")
+    out = {"a_prefill": prefill.cpu().numpy(),
+           "a_tokens": res.tokens.cpu().numpy(),
+           "a_logits": torch.stack(res.logits, dim=1).cpu().numpy(),
+           "a_ms": (t_prefill * 1e3, res.prefill_s * 1e3,
+                    res.decode_s_per_step * 1e3),
+           "a_peak": torch.cuda.max_memory_allocated()}
+    del params, prefill, res, inp
+    free_model(f"phase 24 (a) {VLM} at {TP_VLM_DEPTH} layers, one rank")
+    cfg = get_config(LLAMA).replace(attn_impl="cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(TP_SEED + 2),
+                        torch.float32, dev)
+    with torch.no_grad():
+        prefill, t_prefill = timed(lambda: make_prefill_step(model)(
+            params, tp_llama_batch(cfg, dev)))
+    out.update(c_prefill=prefill.cpu().numpy(), c_ms=t_prefill * 1e3)
+    del params, prefill
+    free_model(f"phase 24 (c) {LLAMA}, one rank")
+    return out
+
+
+def tp_rank(device, ref_path: str, vlm_layers: int) -> dict:
+    """Phase 24 on one of four ranks: (a) internvl2-26b at 8 layers and
+    (b) at ``vlm_layers`` on a (1, 4) mesh, (c) llama3.2-1b on (2, 2),
+    each rank drawing its held params layer by layer from the seed of
+    the parent's one-rank runs, whose results ``ref`` (the ``.npz`` at
+    ``ref_path``) holds.  (a): the prefill step and the serve loop
+    held against ``ref``'s, the decode teacher-forced on its tokens; (b)
+    the same two, its decode held against the tensor-parallel forward
+    over prefix, prompt and generated tokens; (c) the prefill step
+    against ``ref``'s.  Each step through the flash kernel (counted, its
+    plain version refused); the held bytes against ``param_specs``', the
+    peak memory, the times, the all-reduces' count and bytes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels.flash_attention import flash_attention_hm
+    from repro_torch.launch.dryrun import spec_bytes
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import (make_cache_prefill_step,
+                                          make_decode_step, make_prefill_step)
+    from repro_torch.models import ParallelCtx, build_model
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import cache_block, param_specs
+    from repro_torch.tree import leaves
+
+    res = {"transport": dist.get_backend(), "rank": dist.get_rank(),
+           "device": str(device), "t_in": time.time()}
+    with np.load(ref_path) as f:
+        ref = dict(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cuda":
+        lib = build.library_path("flash_attention")
+        if not lib.is_file():
+            raise RuntimeError(f"{lib.name} was not built by the parent")
+        build.load("flash_attention")
+    meshes = {shape: Mesh(shape, ("data", "model"), device=device)
+              for shape in (TP_MESH, TP_LLAMA_MESH)}
+    res["t_meshes"] = time.time()
+    nccl = dist.get_backend() == "nccl"
+    reduced = collections.Counter()
+    orig = collectives._all_reduce
+
+    def counting(x, group, op):
+        if group.pg is not None:
+            reduced["count"] += 1
+            reduced["bytes"] += x.numel() * x.element_size()
+        return orig(x, group, op)
+
+    def sync():
+        torch.cuda.synchronize(device)
+        dist.barrier()
+
+    def close(got, want) -> tuple[float, bool]:
+        want = torch.as_tensor(want).to(got.device)
+        return (float((got - want).abs().max()),
+                bool(torch.allclose(got, want, **MODEL_TOL)))
+
+    def counted(fn):
+        """``fn()`` with the flash launches and all-reduces it makes,
+        counted from 0, and its seconds."""
+        sync()
+        flash_attention_hm.launches = 0
+        reduced.clear()
+        out, dt = timed(fn)
+        return out, dt, flash_attention_hm.launches, dict(reduced)
+
+    def held_model(cfg, mesh, seed):
+        model = build_model(cfg)
+        torch.cuda.reset_peak_memory_stats(device)
+        params = model.init(torch.Generator(device).manual_seed(seed),
+                            torch.float32, device, mesh=mesh)
+        meta = model.init(torch.Generator(), torch.float32, "meta")
+        held = sum(t.numel() * t.element_size() for t in leaves(params))
+        return model, params, {"held": held, "by_specs": spec_bytes(
+            meta, param_specs(meta, mesh), mesh)}
+
+    def vlm(layers: int) -> dict:
+        mesh = meshes[TP_MESH]
+        ctx = ParallelCtx(mesh=mesh, dp_spec="data")
+        cfg = get_config(VLM).replace(n_layers=layers, attn_impl="cuda")
+        model, params, out = held_model(cfg, mesh, TP_SEED)
+        inp = tp_vlm_inputs(cfg, device)
+        step = make_prefill_step(model, ctx)
+        got, dt, out["launches"], out["prefill_reduced"] = counted(
+            lambda: step(params, inp["prefill"]))
+        out["prefill_ms"] = [dt * 1e3]
+        if nccl:
+            out["prefill_ms"].append(timed(lambda: step(
+                params, inp["prefill"]))[1] * 1e3)
+        out["prefill_shape"] = tuple(got.shape)
+        out["finite"] = bool(torch.isfinite(got).all())
+        if layers == TP_VLM_DEPTH:
+            out["prefill_err"], out["prefill_ok"] = close(got, ref[
+                "a_prefill"])
+        del got
+        reduced.clear()
+        served = serve(cfg, gen=SERVE_G, device=device, params=params,
+                       prompts=inp["prompts"], extra_embeds=inp["prefix"],
+                       ctx=ctx)
+        out["serve_ms"] = (served.prefill_s * 1e3,
+                           served.decode_s_per_step * 1e3)
+        out["serve_reduced"] = dict(reduced)
+        out["tokens"] = served.tokens.cpu().numpy()
+        P = cfg.frontend_seq
+        if layers == TP_VLM_DEPTH:
+            # teacher-forced on the one-rank tokens, step by step
+            caches = cache_block(model, SERVE_B, P + SERVE_LP + SERVE_G + 1,
+                                 torch.float32, device, mesh)
+            logits, caches = make_cache_prefill_step(model, ctx)(
+                params, caches, {"tokens": inp["prompts"],
+                                 "extra_embeds": inp["prefix"]})
+            errs = [close(logits, ref["a_logits"][:, 0])]
+            decode = make_decode_step(model, ctx)
+            tokens = torch.from_numpy(ref["a_tokens"]).to(device)
+            for i in range(SERVE_G - 1):
+                logits, caches = decode(params, caches, {
+                    "tokens1": tokens[:, i:i + 1],
+                    "pos": P + SERVE_LP + i})
+                errs.append(close(logits, ref["a_logits"][:, i + 1]))
+            out["decode_err"] = max(e for e, _ in errs)
+            out["decode_ok"] = all(ok for _, ok in errs)
+            out["cache_heads"] = caches["dense"]["k"].shape[3]
+            del caches, logits
+        else:
+            # the tensor-parallel forward over prefix, prompt and the
+            # generated tokens it was fed
+            seq = torch.cat([inp["prompts"], served.tokens[:, :-1]], dim=1)
+            full, _ = model.forward(params, seq, extra_embeds=inp["prefix"],
+                                    ctx=ctx)
+            out["decode_err"], out["decode_ok"] = close(
+                torch.stack(served.logits, dim=1),
+                full[:, P + SERVE_LP - 1:])
+            del full
+        out["peak"] = torch.cuda.max_memory_allocated(device)
+        del params, served, inp
+        return out
+
+    def llama() -> dict:
+        mesh = meshes[TP_LLAMA_MESH]
+        ctx = ParallelCtx(mesh=mesh, dp_spec="data")
+        cfg = get_config(LLAMA).replace(attn_impl="cuda")
+        model, params, out = held_model(cfg, mesh, TP_SEED + 2)
+        got, dt, out["launches"], out["prefill_reduced"] = counted(
+            lambda: make_prefill_step(model, ctx)(
+                params, tp_llama_batch(cfg, device)))
+        out["prefill_ms"] = [dt * 1e3]
+        out["prefill_shape"] = tuple(got.shape)
+        out["finite"] = bool(torch.isfinite(got).all())
+        out["prefill_err"], out["prefill_ok"] = close(got, ref["c_prefill"])
+        out["peak"] = torch.cuda.max_memory_allocated(device)
+        del params
+        return out
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with torch.no_grad(), plain_refused(fa_mod, "flash_attention_hm_torch"), \
+            swapped(collectives, "_all_reduce", counting):
+        for key, run in (("a", lambda: vlm(TP_VLM_DEPTH)),
+                         ("b", lambda: vlm(vlm_layers)), ("c", llama)):
+            t0 = time.perf_counter()
+            res[key] = run()
+            res[key]["s"] = time.perf_counter() - t0
+            release()
+            sync()
+    res["t_out"] = time.time()
+    return res
+
+
+def tp_path(dev, card) -> dict:
+    """Phase 24, after phase 23: tensor-parallel serving through
+    ``run_ranks``, four ranks (NCCL with each its own card when the host
+    has four, else gloo on the one card with every exchange staged
+    through the host).  The one-rank runs of (a) and (c) first, in this
+    process (:func:`tp_references`), then one call of :func:`tp_rank`,
+    whose results are checked here: every rank's logits finite, of the
+    global shape, within ``MODEL_TOL``, its held bytes equal to
+    ``param_specs``', its flash launches one a layer.  Returns the flash
+    launches of each prefill step, summed over the ranks, the flash
+    kernel's record at internvl2-26b's per-rank shape and (b)'s layers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import default_transport, run_ranks
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    transport = default_transport(TP_RANKS, dev)
+    layers = TP_VLM_LAYERS if transport == "nccl" else TP_VLM_DEPTH_ONE_CARD
+    how = ("each rank its own card" if transport == "nccl" else
+           "the ranks share one device, CUDA tensors staged through the host"
+           if dev.type == "cuda" else "CPU tensors")
+    log(f"phase 24 transport: {transport} ({how}), {TP_RANKS} ranks, "
+        f"{cards} cards, {card}; (b) {VLM} at {layers} of "
+        f"{TP_VLM_LAYERS} layers"
+        + ("" if layers == TP_VLM_LAYERS else
+           f" (depth cut: the four ranks share one card)"))
+    ref, t_ref = timed(lambda: tp_references(dev))
+    # to the ranks through a file: a spawned rank's arguments go down a
+    # pipe that the parent fills one rank at a time, each as that rank
+    # starts, so tens of MB of them serialise the ranks' start
+    ref_path = ROOT / "build" / "phase24_reference.npz"
+    ref_path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(ref_path, **ref)
+    t_call = time.time()
+    try:
+        ranks, t_ranks = timed(lambda: run_ranks(
+            tp_rank, TP_RANKS, str(ref_path), layers, device=dev.type,
+            backend=transport, timeout=900))
+    finally:
+        ref_path.unlink()
+    vcfg, lcfg = get_config(VLM), get_config(LLAMA)
+    launches = {}
+    for key, label, depth, B, V in (
+            ("a", f"(a) {VLM} at {TP_VLM_DEPTH} layers on {TP_MESH}",
+             TP_VLM_DEPTH, PREFILL_B, vcfg.vocab),
+            ("b", f"(b) {VLM} at {layers} layers on {TP_MESH}", layers,
+             PREFILL_B, vcfg.vocab),
+            ("c", f"(c) {LLAMA} on {TP_LLAMA_MESH}", lcfg.n_layers,
+             PREFILL_B, lcfg.vocab)):
+        rs = [r[key] for r in ranks]
+        for r, x in zip(ranks, rs):
+            bad = [k for k in ("prefill_ok", "decode_ok") if k in x
+                   and not x[k]]
+            if r["transport"] != transport or x["launches"] != depth or bad \
+                    or x["held"] != x["by_specs"] or not x["finite"] \
+                    or x["prefill_shape"] != (B, V):
+                raise AssertionError(
+                    f"phase 24 {label} rank {r['rank']} over "
+                    f"{r['transport']}: flash launches {x['launches']} for "
+                    f"{depth} layers, held {x['held']} bytes against "
+                    f"{x['by_specs']} by the specs, failed {bad}, "
+                    + ", ".join(f"{k} {x[k]}" for k in (
+                        "prefill_err", "decode_err", "prefill_shape",
+                        "finite") if k in x))
+        if key != "c":
+            toks = [x["tokens"] for x in rs]
+            if any(not np.array_equal(t, toks[0]) for t in toks):
+                raise AssertionError(f"phase 24 {label}: the ranks' greedy "
+                                     f"tokens differ")
+        launches[key] = sum(x["launches"] for x in rs)
+        line = (f"phase 24 {label} over {transport}, {cards} cards, {card}: "
+                f"held param bytes a rank {[x['held'] for x in rs]} "
+                f"({rs[0]['held'] / 1e9:.2f} GB; param_specs' "
+                f"{rs[0]['by_specs']}); peak device memory a rank "
+                f"{[x['peak'] for x in rs]} bytes; make_prefill_step "
+                f"B={PREFILL_B} S={PREFILL_S} ms a rank "
+                f"{[[round(t, 1) for t in x['prefill_ms']] for x in rs]} "
+                f"(first call{', then warm' if transport == 'nccl' else ''})"
+                f"; flash launches a rank {[x['launches'] for x in rs]}; "
+                f"all-reduces a rank in the step "
+                f"{[x['prefill_reduced'] for x in rs]}")
+        if "prefill_err" in rs[0]:
+            one = ref["a_ms"][0] if key == "a" else ref["c_ms"]
+            line += (f"; last logits vs one rank max abs "
+                     f"{max(x['prefill_err'] for x in rs):.3e} (tol "
+                     f"{MODEL_TOL}; one rank {one:.1f} ms)")
+        log(line)
+        if key == "c":
+            continue
+        agree = int((rs[0]["tokens"] == ref["a_tokens"]).sum())
+        log(f"phase 24 {label} serve B={SERVE_B}, {vcfg.frontend_seq} "
+            f"patches + a {SERVE_LP}-token prompt, {SERVE_G} tokens: "
+            f"prefill ms / decode ms a step a rank "
+            f"{[tuple(round(t, 2) for t in x['serve_ms']) for x in rs]}; "
+            f"all-reduces a rank over the loop "
+            f"{[x['serve_reduced'] for x in rs]}; "
+            + (f"decode teacher-forced on the one-rank tokens vs its logits "
+               f"max abs {max(x['decode_err'] for x in rs):.3e}, cache "
+               f"{rs[0]['cache_heads']} of {vcfg.n_kv_heads} kv heads a "
+               f"rank; greedy tokens equal to one rank's {agree} of "
+               f"{ref['a_tokens'].size} (one rank: prefill "
+               f"{ref['a_ms'][1]:.1f} ms, decode {ref['a_ms'][2]:.2f} ms a "
+               f"step, peak {ref['a_peak']} bytes)"
+               if key == "a" else
+               f"decode vs the tensor-parallel forward over prefix, prompt "
+               f"and generated tokens max abs "
+               f"{max(x['decode_err'] for x in rs):.3e}")
+            + f" (tol {MODEL_TOL}); sample ids {rs[0]['tokens'][0, :8]}")
+
+    def after(key):
+        return max(r[key] for r in ranks) - t_call
+
+    log(f"phase 24 wall {time.perf_counter() - t_phase:.1f} s on {card}: "
+        f"one-rank runs {t_ref:.1f} s, run_ranks {t_ranks:.1f} s (the ranks "
+        f"entered {after('t_in'):.1f} s after the call, had their meshes at "
+        f"{after('t_meshes'):.1f} s, left at {after('t_out'):.1f} s; (a) "
+        f"{max(r['a']['s'] for r in ranks):.1f} s, (b) "
+        f"{max(r['b']['s'] for r in ranks):.1f} s, (c) "
+        f"{max(r['c']['s'] for r in ranks):.1f} s)")
+    free_model("phase 24")
+    flash = flash_at(dev, vcfg.replace(
+        head_dim=vcfg.hd(), n_heads=vcfg.n_heads // TP_MESH[1],
+        n_kv_heads=max(1, vcfg.n_kv_heads // TP_MESH[1])),
+        "phase 24 a rank's")
+    return launches, flash, layers
 
 
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
@@ -4778,6 +5233,7 @@ def main() -> int:
             raise AssertionError(f"{r['name']} at the prefill step: "
                                  f"{step['ms']} ms is below its bound "
                                  f"{step['bound_ms']}")
+    walks = start_dryrun()
     train_path(dev, card)
     granite_launches, at_granite = moe_path(dev)
     fa = next(r for r in records if r["name"] == "flash_attention_hm")
@@ -4820,8 +5276,25 @@ def main() -> int:
                              f"{at_internvl['ms']} ms is below its bound "
                              f"{at_internvl['bound_ms']}")
     cost_path(dev, card)
-    walks = start_dryrun()
     train_mesh_path(dev, card)
+    tp, at_tp, tp_layers = tp_path(dev, card)
+    for key, what in (("a", f"{VLM} at {TP_VLM_DEPTH} layers"),
+                      ("b", f"{VLM} at {tp_layers} layers"),
+                      ("c", f"{LLAMA} on {TP_LLAMA_MESH}")):
+        fa["launches_by_path"][f"{what}, tensor-parallel make_prefill_step, "
+                               f"{TP_RANKS} ranks"] = tp[key]
+        fa["launches"] += tp[key]
+    fa["at_internvl_tensor_parallel"] = {
+        **at_tp, "launches": tp["a"] + tp["b"],
+        "max_abs_err": path_err["flash_attention_hm_internvl_tp"]}
+    fa["at_llama_tensor_parallel"] = {
+        "shape": "q [1, 16, 4096, 64] k/v [1, 4, 4096, 64] f32 causal",
+        "launches": tp["c"],
+        "max_abs_err": path_err["flash_attention_hm_llama_tp"]}
+    if not at_tp["bound_ms"] <= at_tp["ms"]:
+        raise AssertionError(f"flash_attention_hm at {VLM}'s per-rank shape: "
+                             f"{at_tp['ms']} ms is below its bound "
+                             f"{at_tp['bound_ms']}")
     finish_dryrun(walks)
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")

@@ -34,11 +34,18 @@ keeps the reference's keys where they have a counterpart (``status``,
 per-rank bytes of the params, optimizer state, batch and caches that
 ``parallel.sharding``'s rules assign: the number comparable to the
 reference's sharded ``argument_size_in_bytes``.  ``memory.argument_bytes``
-is what the port holds on a rank: the parameters whole except the expert
-leaves, which the expert-parallel path cuts, and the global batch (of
-which a train step computes on its block) and caches.  The gap between
-the two is the tensor parallelism and ZeRO sharding that the port does
-not run (ROADMAP.md, Queue 1).
+is what the port holds on a rank: the global batch, of which a step
+computes on its block, and the params: a serving cell's as
+``parallel.sharding.held_params`` cuts them (the decoder family's
+attention, MLP and vocabulary over 'model') with its expert slices, a
+train cell's whole but for the expert slices; a decode cell's caches are
+the rank's block (``sharding.cache_block``: its rows and the kv heads
+its attention reads, where ``cache_specs_tree`` cuts the head dim when
+'model' does not divide the kv heads).  What remains between the two is
+the train step's tensor parallelism and ZeRO and the other families'
+tensor parallelism, which the port does not run (ROADMAP.md, Queue 1).
+A serving cell records the row-parallel sums under ``all-reduce`` and
+the logits' gathers under ``all-gather``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape prefill_32k
@@ -61,9 +68,9 @@ from ..models import ParallelCtx, build_model
 from ..models.transformer import ep_axis_for
 from ..optim import AdamWConfig, init_state
 from ..parallel.collectives import DRY, AxisGroup
-from ..parallel.sharding import (P, _axis_size, batch_specs,
-                                 cache_specs_tree, dp_axes, opt_state_specs,
-                                 param_specs)
+from ..parallel.sharding import (P, _axis_size, batch_specs, cache_block,
+                                 cache_specs_tree, dp_axes, held_params,
+                                 held_shape, opt_state_specs, param_specs)
 from .op_cost import op_cost
 from .steps import make_decode_step, make_prefill_step, make_train_step
 
@@ -122,11 +129,8 @@ def spec_bytes(tree, specs, mesh) -> int:
     if isinstance(specs, P):
         if not isinstance(tree, torch.Tensor):
             return 0                    # a host integer (a cache's len)
-        n = tree.element_size()
-        entries = tuple(specs) + (None,) * (tree.dim() - len(specs))
-        for dim, entry in zip(tree.shape, entries):
-            n *= dim // _axis_size(mesh, entry)
-        return n
+        return tree.element_size() * int(np.prod(held_shape(
+            tree.shape, specs, mesh)))
     if isinstance(tree, dict):
         return sum(spec_bytes(tree[k], specs[k], mesh) for k in tree)
     if isinstance(tree, (tuple, list)):
@@ -187,6 +191,8 @@ def build_cell(arch: str, shape: str, mesh, *, opt_bits: int = 0,
     by_specs = {k: spec_bytes(t, s, mesh) for k, (t, s) in trees.items()}
     by_specs["total"] = sum(by_specs.values())
 
+    if not train:
+        params = held_params(cfg, params, mesh)
     if cfg.moe is not None:
         S = 1 if sspec.kind == "decode" else sspec.seq_len
         ep_axis = ep_axis_for(cfg, sspec.global_batch, S, mesh)
@@ -203,7 +209,9 @@ def build_cell(arch: str, shape: str, mesh, *, opt_bits: int = 0,
         args = (params, batch)
     else:
         step = make_decode_step(model, ctx)
-        args = (params, caches, batch)
+        args = (params, cache_block(model, sspec.global_batch,
+                                    sspec.seq_len, torch.bfloat16, "meta",
+                                    mesh), batch)
     return cfg, step, args, by_specs
 
 

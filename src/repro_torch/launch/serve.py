@@ -16,7 +16,10 @@ encoder-decoder family: the frames encoded once, the prompt decoded into
 the caches against them, then decode steps given ``enc_out``.  The
 multimodal-prefix family: the ``extra_embeds`` prefix and the prompt
 prefilled into the caches in one forward, then decode steps at positions
-counted from the prefix's start.
+counted from the prefix's start.  Given a ``ParallelCtx`` with a mesh,
+:func:`serve` runs on this rank's held params (the decoder family's
+tensor-parallel blocks) and cache block through the serving steps of
+``launch/steps.py``, every rank one process of ``launch.mesh.run_ranks``.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ import torch
 
 from ..compat import default_device
 from ..configs import get_config
-from ..models import build_model, encdec
+from ..models import ParallelCtx, build_model, encdec
 from ..models.config import ArchConfig
+from ..parallel.sharding import cache_block, held_params
+from .steps import make_cache_prefill_step, make_decode_step
 
 
 @dataclass
@@ -51,7 +56,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
           prompts: Optional[torch.Tensor] = None,
           frames: Optional[torch.Tensor] = None,
           extra_embeds: Optional[torch.Tensor] = None,
-          seed: int = 0) -> ServeResult:
+          seed: int = 0,
+          ctx: Optional[ParallelCtx] = None) -> ServeResult:
     """Prefill ``prompts`` [B, prompt_len] into fresh caches, then decode
     ``gen - 1`` greedy steps.  Without ``params``/``prompts`` they are drawn
     from ``seed`` (f32 params, as the reference's ``serve.py`` inits them).
@@ -61,12 +67,25 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     d_model] goes in front of the prompt: the caches hold ``P + prompt_len
     + gen`` positions and decode step ``i`` runs at position ``P +
     prompt_len + i``.  The prefill time includes the encoder's or the
-    prefix's.  Runs on CUDA unless ``device="cpu"``."""
+    prefix's.  Runs on CUDA unless ``device="cpu"``.
+
+    With ``ctx`` and its mesh, every rank of the mesh calls this with the
+    same global ``prompts`` (and prefix) and its held ``params``
+    (``parallel.sharding.held_params``; drawn whole and cut when not
+    given); the caches are its block, and the tokens and logits returned
+    are the global ones.  The encoder-decoder family serves on one rank."""
     device = default_device(device)
     model = build_model(cfg)
+    ctx = ParallelCtx() if ctx is None else ctx
+    mesh = ctx.mesh if ctx.mesh is not None and ctx.mesh.size > 1 else None
+    if mesh is not None and cfg.encdec:
+        raise ValueError(f"{cfg.name}: the encoder-decoder family serves on "
+                         f"one rank")
     if params is None:
         params = model.init(torch.Generator(device).manual_seed(seed),
                             torch.float32, device)
+        if mesh is not None:
+            params = held_params(cfg, params, mesh)
     if prompts is None:
         prompts = torch.randint(
             0, cfg.vocab, (batch, prompt_len), device=device,
@@ -86,20 +105,27 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     elif cfg.frontend != "none" and extra_embeds is None:
         extra_embeds = drawn_prefix()
     P = 0 if extra_embeds is None else extra_embeds.shape[1]
-    caches = model.init_cache(B, P + Lp + G + 1, torch.float32, device)
+    if mesh is None:
+        caches = model.init_cache(B, P + Lp + G + 1, torch.float32, device)
+    else:
+        caches = cache_block(model, B, P + Lp + G + 1, torch.float32, device,
+                             mesh)
+    decode = make_decode_step(model, ctx)
 
     _sync(device)
     t0 = time.perf_counter()
-    kw = {}
+    batch = {}
     if cfg.encdec:
-        enc = kw["enc_out"] = encdec.encode(cfg, params, frames)
+        enc = batch["enc_out"] = encdec.encode(cfg, params, frames)
         logits, caches = encdec.decode(cfg, params, prompts, enc,
                                        caches=caches)
+        logits = logits[:, -1].clone()  # frees the [B, Lp, V] logits
     else:
-        logits, caches = model.forward(params, prompts,
-                                       extra_embeds=extra_embeds,
-                                       caches=caches, pos_offset=0)
-    logits = logits[:, -1].clone()      # frees the [B, Lp, V] logits
+        prompt = {"tokens": prompts}
+        if extra_embeds is not None:
+            prompt["extra_embeds"] = extra_embeds
+        logits, caches = make_cache_prefill_step(model, ctx)(params, caches,
+                                                            prompt)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -110,8 +136,8 @@ def serve(cfg: ArchConfig, *, batch: int = 4, prompt_len: int = 32,
     out, step_logits = [tok], [logits]
     t0 = time.perf_counter()
     for i in range(G - 1):
-        logits, caches = model.decode_step(params, tok, caches,
-                                           P + Lp + i, **kw)
+        logits, caches = decode(params, caches,
+                                {**batch, "tokens1": tok, "pos": P + Lp + i})
         tok = pick(logits)
         out.append(tok)
         step_logits.append(logits)

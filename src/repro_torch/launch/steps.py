@@ -4,68 +4,65 @@ The port of the reference package's ``launch/steps.py``, with its
 signatures.  A train step takes ``(params, opt_state, batch)`` and returns
 ``(params, opt_state, loss)`` as the reference's does; the params and the
 optimizer state are updated in place and returned.  Every step maker
-takes the reference's ``ParallelCtx``: the prefill step passes it to
-every family's forward (the decoder family's MoE layers read its mesh;
-elsewhere the reference reads it only for layout hints, not ported);
-the decode step ignores it, as the reference's does.
+takes the reference's ``ParallelCtx`` and passes it to every family's
+forward or decode step (the decoder family's MoE layers and held blocks
+read its mesh; elsewhere the reference reads it only for layout hints,
+not ported).
 
-A train step under a mesh of more than one rank computes what the
-reference's sharded step computes, with one process a rank (see
-:func:`value_and_grad`): data parallelism over the dp axes and, in MoE
-layers that take it, expert parallelism.  Every leaf is held whole on
-every rank except the expert stacks, which a rank holds as its
+Under a mesh of more than one rank (one process a rank), a serving step
+computes what the reference's jitted step computes under its argument
+shardings (``param_specs``, ``batch_specs``, ``cache_specs_tree``), and
+returns the global last-position logits on every rank, as its
+``out_shardings=P()`` does.  It takes the global batch and computes on
+the rank's block (:func:`serving_block`); the params are as the rank
+holds them (``parallel.sharding.held_params``: the decoder family's
+attention, MLP and vocabulary as their blocks over 'model', or whole),
+and the decode caches are the rank's block (``sharding.cache_block``).
+
+A train step under a mesh computes what the reference's sharded step
+computes (see :func:`value_and_grad`): data parallelism over the dp axes
+and, in MoE layers that take it, expert parallelism.  Every leaf is held
+whole on every rank except the expert stacks, which a rank holds as its
 ``[E/ep, ...]`` slice under their storage sharding (``param_specs``),
-with the slice's optimizer state.
+with the slice's optimizer state; a leaf held as a tensor-parallel block
+is refused, as its backward is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-import re
 
 import torch
 
 from ..models import Model
 from ..models.transformer import ParallelCtx
 from ..optim import AdamWConfig, apply_updates, init_state
-from ..parallel.collectives import psum, psum_grads
-from ..parallel.sharding import (P, _axes, _axis_size, batch_specs, dp_axes,
-                                 local_shard, spec_for_param)
+from ..parallel.collectives import all_gather, psum, psum_grads
+from ..parallel.sharding import (_EXPERTS, P, _axes, _axis_size, _paths,
+                                 batch_specs, dp_axes, held_batch,
+                                 held_specs, local_shard, param_shapes,
+                                 tensor_parallel)
 from ..tree import leaves, rebuild
-
-_EXPERTS = re.compile(r"moe/w[gud]$")
 
 
 def _meshed(ctx: ParallelCtx) -> bool:
     return ctx.mesh is not None and ctx.mesh.size > 1
 
 
-def _paths(tree, prefix: str = "") -> list:
-    """Each leaf's path (``a/b/c``), in the order of :func:`leaves`."""
-    if isinstance(tree, dict):
-        return [p for k in sorted(tree)
-                for p in _paths(tree[k], f"{prefix}/{k}" if prefix else k)]
-    return [prefix]
-
-
-def held_specs(model: Model, params, mesh) -> list:
-    """The spec of each leaf (in the order of :func:`leaves`) as this rank
-    holds it: an expert stack held as a slice (``[L, E/ep, ...]``) has its
-    storage spec, ``param_specs``' on the global ``[L, E, ...]``; every
-    other leaf is held whole, ``P()``."""
-    E = model.cfg.moe.n_experts if model.cfg.moe else 0
-    out = []
-    for path, t in zip(_paths(params), leaves(params)):
-        if not (_EXPERTS.search(path) and t.shape[-3] != E):
-            out.append(P())
-            continue
-        shape = tuple(t.shape[:-3]) + (E,) + tuple(t.shape[-2:])
-        spec = spec_for_param(path, shape, mesh)
-        n = _axis_size(mesh, spec[-3])
-        if t.shape[-3] * n != E:
-            raise ValueError(f"{path}: {t.shape[-3]} experts, neither {E} "
-                             f"nor a slice under {spec} ({E // n})")
-        out.append(spec)
-    return out
+def train_specs(model: Model, params, mesh, shapes: list) -> list:
+    """:func:`~repro_torch.parallel.sharding.held_specs` of a train step's
+    params (``shapes`` their global shapes, as there): an expert stack
+    whole or as its slice, every other leaf whole.  A leaf held as a
+    tensor-parallel block is refused, the error naming it: the train
+    step's tensor-parallel backward is not ported."""
+    specs = held_specs(model, params, mesh, shapes)
+    for path, t, spec in zip(_paths(params), leaves(params), specs):
+        if spec != P() and not _EXPERTS.search(path):
+            raise ValueError(
+                f"{path}: held as its tensor-parallel block "
+                f"{tuple(t.shape)} ({spec}); a train step under a mesh "
+                f"holds it whole (the tensor-parallel backward is not "
+                f"ported)")
+    return specs
 
 
 def _named(spec: P) -> set:
@@ -87,6 +84,34 @@ def data_block(batch: dict, mesh) -> dict:
                 f"the {_axis_size(mesh, dps)} data-parallel ranks {dps}")
         out[k] = local_shard(x, specs[k], mesh)
     return out
+
+
+def serving_block(batch: dict, mesh) -> tuple[dict, bool]:
+    """``(block, cut)``: this serving rank's block of the global batch,
+    dim 0 over the dp axes where they divide it (``batch_specs``; a
+    batch they do not divide, such as ``long_500k``'s one row, is held
+    whole on every rank, and ``cut`` is False), and whether it was cut.
+    A host integer (the decode position) passes as it is."""
+    dps = dp_axes(mesh)
+    rows = [x.shape[0] for x in batch.values()
+            if isinstance(x, torch.Tensor) and x.dim()]
+    cut = bool(rows) and _axis_size(mesh, dps) > 1 and all(
+        held_batch(n, mesh) != n for n in rows)
+    if not cut:
+        return dict(batch), False
+    spec = P(dps if len(dps) > 1 else dps[0])
+    return {k: local_shard(x, spec, mesh)
+            if isinstance(x, torch.Tensor) and x.dim() else x
+            for k, x in batch.items()}, True
+
+
+def _rows_gathered(x: torch.Tensor, mesh, cut: bool) -> torch.Tensor:
+    """The ranks' row blocks of ``x`` all-gathered over the dp axes (the
+    global batch's rows, in order), or ``x`` where the batch was not
+    cut."""
+    if not cut:
+        return x
+    return torch.cat(all_gather(x, mesh.group(dp_axes(mesh))).unbind(0))
 
 
 def exchange(grads: list, specs: list, mesh) -> list:
@@ -127,7 +152,7 @@ def global_norm(grads: list, specs: list, mesh) -> torch.Tensor:
 
 
 def value_and_grad(model: Model, params, batch,
-                   ctx: ParallelCtx = ParallelCtx()):
+                   ctx: ParallelCtx = ParallelCtx(), specs=None):
     """``(loss, grads)`` with ``grads`` a dict shaped like ``params``.
 
     Differentiates with respect to aliases of the leaves, so the caller's
@@ -137,13 +162,16 @@ def value_and_grad(model: Model, params, batch,
     (:func:`data_block`), the loss is the global one and the gradients
     are exchanged (:func:`exchange`), which is what ``jax.value_and_grad``
     of the reference's loss under the mesh returns (for a sliced leaf,
-    this rank's slice of it).
+    this rank's slice of it).  ``specs``: the params' held specs
+    (:func:`train_specs`), worked out here when not given.
     """
     meshed = _meshed(ctx)
     if meshed:
-        specs = held_specs(model, params, ctx.mesh)
+        if specs is None:
+            specs = train_specs(model, params, ctx.mesh,
+                                param_shapes(model))
         batch = data_block(batch, ctx.mesh)
-        ctx = dataclasses.replace(ctx, dp_block=True)
+        ctx = dataclasses.replace(ctx, dp_block=True, training=True)
     flat = [p.detach().requires_grad_() for p in leaves(params)]
     loss = model.loss(rebuild(params, flat), batch, ctx)
     grads = list(torch.autograd.grad(loss, flat))
@@ -152,11 +180,10 @@ def value_and_grad(model: Model, params, batch,
     return loss.detach(), rebuild(params, grads)
 
 
-def _update(model, opt_cfg, ctx, params, grads, opt_state):
+def _update(opt_cfg, ctx, params, grads, opt_state, specs):
     gnorm = None
     if _meshed(ctx):
-        gnorm = global_norm(leaves(grads),
-                            held_specs(model, params, ctx.mesh), ctx.mesh)
+        gnorm = global_norm(leaves(grads), specs, ctx.mesh)
     return apply_updates(opt_cfg, params, grads, opt_state, gnorm=gnorm)
 
 
@@ -173,11 +200,19 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     its bf16 cast.  The optimizer update runs once on the mean gradient,
     clipped by the whole gradient's norm.  ``ctx`` goes to the loss.
     """
+    # the global param shapes, read once here rather than in every step
+    shapes = param_shapes(model) if _meshed(ctx) else None
+
+    def held(params):
+        return train_specs(model, params, ctx.mesh, shapes) \
+            if _meshed(ctx) else None
+
     if microbatches == 1:
         def train_step(params, opt_state, batch):
-            loss, grads = value_and_grad(model, params, batch, ctx)
-            params, opt_state = _update(model, opt_cfg, ctx, params, grads,
-                                        opt_state)
+            specs = held(params)
+            loss, grads = value_and_grad(model, params, batch, ctx, specs)
+            params, opt_state = _update(opt_cfg, ctx, params, grads,
+                                        opt_state, specs)
             return params, opt_state, loss
         return train_step
 
@@ -189,45 +224,81 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                              + tuple(x.shape[1:]))
 
         mbs = {k: split(v) for k, v in batch.items()}
+        specs = held(params)
         acc = None
         losses = []
         for i in range(microbatches):
             loss, g = value_and_grad(model, params,
                                       {k: v[i] for k, v in mbs.items()},
-                                      ctx)
+                                      ctx, specs)
             gl = [x.to(torch.bfloat16) for x in leaves(g)]
             acc = gl if acc is None else [a + x for a, x in zip(acc, gl)]
             losses.append(loss)
         grads = rebuild(params, [a / microbatches for a in acc])
-        params, opt_state = _update(model, opt_cfg, ctx, params, grads,
-                                    opt_state)
+        params, opt_state = _update(opt_cfg, ctx, params, grads,
+                                    opt_state, specs)
         return params, opt_state, torch.stack(losses).mean()
     return train_step
 
 
-def make_prefill_step(model: Model, ctx: ParallelCtx = ParallelCtx()):
-    def prefill_step(params, batch):
-        logits, _ = model.forward(params, batch["tokens"],
-                                  extra_embeds=batch.get("extra_embeds"),
-                                  ctx=ctx)
+def _serving(model: Model, ctx: ParallelCtx, batch: dict):
+    """``(block, cut, ctx, kw)`` of a serving step: the rank's batch
+    block, whether it was cut, the ctx its forward takes (``dp_block``
+    where it was cut) and, for the decoder family under a mesh, the
+    forward's ``last_only``."""
+    if not _meshed(ctx):
+        return batch, False, ctx, {}
+    block, cut = serving_block(batch, ctx.mesh)
+    kw = {"last_only": True} if tensor_parallel(model.cfg) else {}
+    return block, cut, dataclasses.replace(ctx, dp_block=cut), kw
+
+
+def make_cache_prefill_step(model: Model, ctx: ParallelCtx = ParallelCtx()):
+    """The serve loop's prefill: ``(params, caches, batch) -> (logits [B,
+    V], caches)``, the prompt (behind its ``extra_embeds`` prefix) written
+    into fresh caches from position 0 (none when ``caches`` is None) and
+    the last-position logits.  Under a mesh the rank computes its batch
+    block (:func:`serving_block`) with its held params into its cache
+    block, and the logits are gathered over 'model' (a held vocabulary)
+    and the dp axes, so every rank returns the global ones."""
+    def prefill_step(params, caches, batch):
+        block, cut, fctx, kw = _serving(model, ctx, batch)
+        logits, caches = model.forward(
+            params, block["tokens"], extra_embeds=block.get("extra_embeds"),
+            caches=caches, pos_offset=0, ctx=fctx, **kw)
         # serving returns the last-position logits (next-token distribution);
         # a copy, so the [B, S, V] logits are freed on return
-        return logits[:, -1].clone()
+        return _rows_gathered(logits[:, -1].clone(), ctx.mesh, cut), caches
+    return prefill_step
+
+
+def make_prefill_step(model: Model, ctx: ParallelCtx = ParallelCtx()):
+    """The prefill step: :func:`make_cache_prefill_step`'s logits, with no
+    caches."""
+    step = make_cache_prefill_step(model, ctx)
+
+    def prefill_step(params, batch):
+        return step(params, None, batch)[0]
     return prefill_step
 
 
 def make_decode_step(model: Model, ctx: ParallelCtx = ParallelCtx()):
-    """The decode step; ``ctx`` is ignored, as the reference's decode step
-    ignores it."""
-    del ctx
+    """The decode step: ``(logits [B, V], caches)``.  The reference's
+    decode step ignores ``ctx``, since GSPMD reads the layout from its
+    arguments' shardings; the port reads it from ``ctx``: under a mesh
+    the rank decodes its batch block into its cache block
+    (``parallel.sharding.cache_block``) with its held params, and the
+    logits are gathered as the prefill step's are."""
     cfg = model.cfg
 
     def decode_step(params, caches, batch):
-        kw = {}
+        block, cut, fctx, _ = _serving(model, ctx, batch)
+        kw = {"ctx": fctx} if _meshed(ctx) else {}
         if cfg.encdec:
-            kw["enc_out"] = batch["enc_out"]
-        return model.decode_step(params, batch["tokens1"], caches,
-                                 batch["pos"], **kw)
+            kw["enc_out"] = block["enc_out"]
+        logits, caches = model.decode_step(params, block["tokens1"], caches,
+                                           block["pos"], **kw)
+        return _rows_gathered(logits, ctx.mesh, cut), caches
     return decode_step
 
 

@@ -25,7 +25,7 @@ from .transformer import ParallelCtx
 class Model:
     """Uniform handle: every family exposes the same five functions."""
     cfg: ArchConfig
-    init: Callable          # (generator, dtype, device) -> params
+    init: Callable          # (generator, dtype, device[, mesh]) -> params
     loss: Callable          # (params, batch, ctx) -> scalar
     forward: Callable       # (params, tokens, **kw) -> (logits, caches)
     init_cache: Callable    # (batch, max_len, dtype, device) -> caches
@@ -46,8 +46,8 @@ def build_model(cfg: ArchConfig) -> Model:
     mod = _family_module(cfg)
     return Model(
         cfg=cfg,
-        init=lambda gen, dtype=torch.bfloat16, device=None: mod.init_params(
-            cfg, gen, dtype, device),
+        init=lambda gen, dtype=torch.bfloat16, device=None, **kw:
+            mod.init_params(cfg, gen, dtype, device, **kw),
         loss=lambda params, batch, ctx=ParallelCtx(): mod.loss_fn(
             cfg, params, batch, ctx),
         forward=lambda params, tokens, **kw: mod.forward(

@@ -8,8 +8,10 @@ shape; otherwise it runs the reference's plain algorithms as torch ops:
 an online-softmax chunked loop, or direct softmax for decode and small
 sequences.  MoE keeps the reference's grouped one-hot einsum dispatch and
 its sort-based expert-parallel form, with its all-to-alls over a mesh
-axis of ranks (``repro_torch.parallel``); the reference's sharding
-constraints (GSPMD layout hints) are not ported.  Products of two dtypes
+axis of ranks (``repro_torch.parallel``).  GQA attention and the dense
+MLP run tensor-parallel over a mesh's 'model' axis where the rank holds
+their blocks, in place of the reference's sharding constraints (GSPMD
+layout hints), which are not ported.  Products of two dtypes
 promote to the wider, as ``jnp.matmul`` does (:func:`mm`).
 """
 from __future__ import annotations
@@ -20,8 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collectives import AxisGroup, all_to_all
-from ..parallel.sharding import P
+from ..parallel.collectives import AxisGroup, all_gather, all_to_all, psum
+from ..parallel.sharding import P, kv_heads_held
 from .config import ArchConfig
 
 NEG_INF = -1e30
@@ -195,8 +197,32 @@ def gqa_params(gen, cfg: ArchConfig, dtype, device):
     return p
 
 
+def _held_kv(x, p, name: str, cfg: ArchConfig, heads: range, group):
+    """This rank's kv heads ``heads`` of ``x``'s keys or values (``name``
+    ``"k"`` or ``"v"``), from ``w{name}`` (and ``b{name}``) as the rank
+    holds it: whole (the heads taken from the whole projection), as its
+    spec's block where that block is exactly those heads (``m`` divides
+    ``Hkv``), or as its spec's block of columns within heads, whose
+    projections are all-gathered over 'model' before the heads are
+    taken."""
+    hd, n = cfg.hd(), cfg.n_kv_heads * cfg.hd()
+    y = mm(x, p["w" + name])
+    if cfg.qkv_bias:
+        y = y + p["b" + name]
+    cols = y.shape[-1]
+    if cols == n:
+        return y[..., heads.start * hd:heads.stop * hd]
+    if cols * group.size != n:
+        raise ValueError(f"attn/w{name}: {cols} columns, neither {n} nor a "
+                         f"block of {n // group.size} over 'model'")
+    if cfg.n_kv_heads % group.size == 0:
+        return y
+    y = torch.cat(all_gather(y, group).unbind(0), dim=-1)
+    return y[..., heads.start * hd:heads.stop * hd]
+
+
 def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
-              causal=True, window=0):
+              causal=True, window=0, mesh=None):
     """GQA attention.  cache: dict(k,v [B,Smax,Hkv,hd], len) for decode,
     or a ring buffer dict(k,v [B,W,Hkv,hd], pos [W], len) for windowed
     decode past W.
@@ -206,21 +232,49 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
     at ``len % W`` with the start clamped to ``W - S``, as the reference's
     ``dynamic_update_slice`` clamps it.  The returned cache carries the
     new length.
+
+    Tensor-parallel where the rank holds ``wq`` as its ``[d, H·hd/m]``
+    block over the ``m`` ranks of ``mesh``'s 'model' axis (its spec,
+    ``parallel.sharding.tp_spec``): column-parallel ``wq``/``wk``/``wv``
+    give its ``H/m`` query heads and the kv heads they read
+    (``kv_heads_held``, through :func:`_held_kv`), RoPE, the cache (which
+    holds those kv heads only) and the attention run on them, and the
+    row-parallel ``wo`` block's output is summed over 'model' (``psum``).
+    Held whole, every head is computed, as without a mesh.
     """
     B, S, d = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    q = mm(x, p["wq"])
-    k = mm(x, p["wk"])
-    v = mm(x, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, Hkv, hd)
+    hq = p["wq"].shape[-1] // hd
+    group = None
+    if hq == H:
+        heads = range(Hkv)
+        q = mm(x, p["wq"])
+        k = mm(x, p["wk"])
+        v = mm(x, p["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    else:
+        if mesh is None or hq * mesh.shape["model"] != H:
+            raise ValueError(f"attn/wq: {hq} of {H} heads without a mesh "
+                             f"whose 'model' axis splits them")
+        group = mesh.group("model")
+        heads = kv_heads_held(cfg, mesh)
+        q = mm(x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        k = _held_kv(x, p, "k", cfg, heads, group)
+        v = _held_kv(x, p, "v", cfg, heads, group)
+    hkv = len(heads)
+    q = rope(q.reshape(B, S, hq, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, hkv, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, hkv, hd)
     new_cache = None
     if cache is not None:
         n = cache["len"]
         ck, cv = cache["k"], cache["v"]
+        if ck.shape[2] != hkv:
+            raise ValueError(f"a cache of {ck.shape[2]} kv heads where this "
+                             f"rank's attention reads {hkv}")
         if "pos" in cache:                 # ring buffer of W slots
             W = ck.shape[1]
             if S > W:
@@ -241,7 +295,8 @@ def gqa_apply(p, x, cfg: ArchConfig, *, positions, cache=None,
         kv_pos = positions
     out = attention_core(q, k, v, causal=causal, q_pos=positions,
                          kv_pos=kv_pos, window=window, impl=cfg.attn_impl)
-    return mm(out.reshape(B, S, H * hd), p["wo"]), new_cache
+    out = mm(out.reshape(B, S, hq * hd), p["wo"])
+    return (out if group is None else psum(out, group)), new_cache
 
 
 # ---------------------------------------------------------------------- MLA
@@ -344,11 +399,17 @@ def mlp_params(gen, d: int, ff: int, kind: str, dtype, device):
             "w2": normal(gen, (ff, d), 1.0 / math.sqrt(ff), dtype, device)}
 
 
-def mlp_apply(p, x, kind: str):
+def mlp_apply(p, x, kind: str, group: Optional[AxisGroup] = None):
+    """The dense MLP.  With ``group`` (the 'model' axis), the rank holds
+    column-parallel ``wg``/``wu`` (or ``w1``) and row-parallel ``wd`` (or
+    ``w2``) blocks of the hidden dim, and its output is summed over the
+    axis (``psum``)."""
     if kind == "swiglu":
-        return mm(F.silu(mm(x, p["wg"])) * mm(x, p["wu"]), p["wd"])
-    # jax.nn.gelu defaults to the tanh approximation
-    return mm(F.gelu(mm(x, p["w1"]), approximate="tanh"), p["w2"])
+        out = mm(F.silu(mm(x, p["wg"])) * mm(x, p["wu"]), p["wd"])
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        out = mm(F.gelu(mm(x, p["w1"]), approximate="tanh"), p["w2"])
+    return out if group is None else psum(out, group)
 
 
 # ---------------------------------------------------------------------- MoE

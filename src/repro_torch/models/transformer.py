@@ -14,8 +14,15 @@ weight's dtype.  Decode caches (GQA's or MLA's, one group a stack) are
 updated in place.  MoE layers take the reference's dispatch: without a
 mesh in the :class:`ParallelCtx`, the grouped einsum or the one-shard
 expert-parallel form; with one, the expert-parallel form over the ranks
-(one process a rank; everything outside the MoE region runs replicated
-on every rank).
+(one process a rank).
+
+Under a mesh, the route of each leaf follows how the rank holds it
+(``parallel.sharding.tp_spec``): held as its block over 'model', GQA
+attention and the dense MLP run column- then row-parallel with one
+``psum`` each, the embedding looks up its vocab range and sums, and the
+unembedding computes its vocab block (gathered) or its ``d`` block's
+partial logits (summed); held whole, a leaf runs as on one card.  The MoE
+region receives ``h`` replicated over 'model', as before.
 """
 from __future__ import annotations
 
@@ -29,9 +36,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import default_device
-from ..parallel.collectives import psum, pvary
+from ..parallel.collectives import all_gather, psum, pvary
 from ..parallel.sharding import (P, _axes, _axis_size, _fit_axis, dp_axes,
-                                 gather_shards, local_shard)
+                                 gather_shards, held_params, local_shard)
 from ..tree import leaves
 from .config import ArchConfig
 from .layers import (gqa_apply, gqa_params, mla_apply, mla_params,
@@ -63,6 +70,9 @@ class ParallelCtx:
     #: axes), so the MoE region cuts tokens over 'model' only and
     #: :func:`xent` divides by the global count of labels
     dp_block: bool = False
+    #: set by a train step under a mesh: the step updates what a rank
+    #: holds, so an expert stack must be the rank's slice
+    training: bool = False
 
 
 def stacked(n: int, draw: Callable[[], dict]) -> dict:
@@ -177,22 +187,37 @@ def _layer_params(gen, cfg: ArchConfig, dtype, device, moe_layer: bool):
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
-                dtype=torch.bfloat16, device=None):
+                dtype=torch.bfloat16, device=None, mesh=None):
     """Parameters drawn from ``gen`` (which must live on ``device``:
-    CUDA unless the caller passes ``device="cpu"``)."""
+    CUDA unless the caller passes ``device="cpu"``).  With ``mesh``, this
+    rank's held tree (``parallel.sharding.held_params``) from the same
+    draws: each leaf is cut to its block as soon as it is drawn, so no
+    more than one layer is whole at a time."""
     device = default_device(device)
+
+    def held(tree, prefix=""):
+        return tree if mesh is None else held_params(cfg, tree, mesh, prefix)
+
     s = 1.0 / math.sqrt(cfg.d_model)
-    params: dict = {
+    params: dict = held({
         "embed": normal(gen, (cfg.vocab, cfg.d_model), s, dtype, device),
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-    }
+    })
     if not cfg.tie_embeddings:
-        params["unembed"] = normal(gen, (cfg.d_model, cfg.vocab), s, dtype,
-                                   device)
+        params.update(held({"unembed": normal(
+            gen, (cfg.d_model, cfg.vocab), s, dtype, device)}))
     for _, key, n, moe in stacks(cfg):
-        params[key] = stacked(n, functools.partial(
-            _layer_params, gen, cfg, dtype, device, moe))
+        params[key] = stacked(n, lambda moe=moe, key=key: held(
+            _layer_params(gen, cfg, dtype, device, moe), key))
     return params
+
+
+def _model_group(ctx: Optional[ParallelCtx]):
+    """The 'model' axis of ``ctx``'s mesh, which a held block needs."""
+    if ctx is None or ctx.mesh is None:
+        raise ValueError("a leaf held as a block over 'model' without a "
+                         "mesh in the ParallelCtx")
+    return ctx.mesh.group("model")
 
 
 def _block(cfg: ArchConfig, p, x, positions, cache, moe_layer: bool,
@@ -203,13 +228,17 @@ def _block(cfg: ArchConfig, p, x, positions, cache, moe_layer: bool,
                                  cache=cache)
     else:
         a, new_cache = gqa_apply(p["attn"], h, cfg, positions=positions,
-                                 cache=cache, window=window)
+                                 cache=cache, window=window,
+                                 mesh=None if ctx is None else ctx.mesh)
     x = x + a
     h = rmsnorm(p["ln2"], x, cfg.rms_eps)
     if moe_layer:
         f = _moe_dispatch(cfg, p["moe"], h, ctx)
     else:
-        f = mlp_apply(p["mlp"], h, cfg.mlp)
+        w_in = p["mlp"]["wg" if cfg.mlp == "swiglu" else "w1"]
+        held = w_in.shape[-1] != cfg.d_ff
+        f = mlp_apply(p["mlp"], h, cfg.mlp,
+                      _model_group(ctx) if held else None)
     return x + f, new_cache
 
 
@@ -243,10 +272,11 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
       data block already) and its slice of the routed experts
       (``pmoe``'s global ``[E, ...]`` stacks sliced by ``local_shard``,
       or already this rank's ``[E/ep, ...]`` as the storage sharding
-      holds them; a train step under a mesh takes only the latter), runs
-      the routed experts only, and the block outputs are all-gathered
-      back to the rank's ``[B, S, d]`` (GSPMD's ``out_specs``).  The
-      shared expert is added outside the region, on every rank.
+      holds them; a train step under a mesh, ``ctx.training``, takes
+      only the latter), runs the routed experts only, and the block
+      outputs are all-gathered back to the rank's ``[B, S, d]``
+      (GSPMD's ``out_specs``).  The shared expert is added outside the
+      region, on every rank.
 
     The backward is ``shard_map``'s transpose: the cuts and the gather
     transpose into each other, the all-to-alls into themselves, and a
@@ -284,7 +314,9 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
     for name in ("wg", "wu", "wd"):
         w = pmoe[name]
         if w.shape[0] == E:
-            if blocked:
+            # a train step holds and updates its slice; a serving rank may
+            # take the global stack, cut here
+            if ctx.training:
                 raise ValueError(
                     f"moe/{name}: a global stack of {E} experts under a "
                     f"training mesh; a rank holds and updates its "
@@ -305,8 +337,23 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
     return out
 
 
-def _embed(cfg: ArchConfig, params, tokens, extra_embeds=None):
-    x = params["embed"][tokens]
+def _embed(cfg: ArchConfig, params, tokens, extra_embeds=None,
+           ctx: Optional[ParallelCtx] = None):
+    """The token embeddings, behind the ``extra_embeds`` prefix.  An
+    embedding held as its vocab block ``[V/m, d]`` (vocab-parallel) looks
+    up the ids in its range, writes zeros elsewhere and sums over
+    'model': one non-zero term an element, so the whole lookup bit for
+    bit."""
+    table = params["embed"]
+    if table.shape[0] == cfg.vocab:
+        x = table[tokens]
+    else:
+        group = _model_group(ctx)
+        n = table.shape[0]
+        local = tokens.long() - group.index * n
+        mine = (local >= 0) & (local < n)
+        x = psum(torch.where(mine[..., None], table[local.clamp(0, n - 1)],
+                             0), group)
     if extra_embeds is not None:
         # VLM/audio stub: prefix precomputed embeddings
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -341,23 +388,41 @@ def unembed_mm(x, w, transpose_w: bool):
     return _UnembedMM.apply(x, w, transpose_w)
 
 
-def _unembed(cfg: ArchConfig, params, x):
+def _unembed(cfg: ArchConfig, params, x, ctx: Optional[ParallelCtx] = None):
+    """The logits.  Tied to an embedding held as its vocab block, the rank
+    computes its vocab block of the logits and the blocks are gathered
+    over 'model'; untied and held as ``[d/m, V]`` (the unembedding's
+    spec), it computes its ``d`` block's partial logits and they are
+    summed over 'model'."""
     if cfg.tie_embeddings:
-        return unembed_mm(x, params["embed"], True)
-    return unembed_mm(x, params["unembed"], False)
+        w = params["embed"]
+        y = unembed_mm(x, w, True)
+        if w.shape[0] == cfg.vocab:
+            return y
+        return torch.cat(all_gather(y, _model_group(ctx)).unbind(0), dim=-1)
+    w = params["unembed"]
+    if w.shape[0] == cfg.d_model:
+        return unembed_mm(x, w, False)
+    group = _model_group(ctx)
+    n = w.shape[0]
+    return psum(unembed_mm(x.narrow(-1, group.index * n, n), w, False), group)
 
 
 def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
             caches=None, pos_offset: int = 0, window: Optional[int] = None,
-            ctx: Optional[ParallelCtx] = None):
+            ctx: Optional[ParallelCtx] = None, last_only: bool = False):
     """Full forward pass. tokens [B,S] -> (logits [B,S_total,V], caches).
 
-    caches: the stacked cache dict of :func:`init_cache` for incremental
-    decoding, written in place; pos_offset is the absolute position of
-    tokens[:,0]; ctx: the :class:`ParallelCtx` its MoE layers dispatch on.
+    caches: the stacked cache dict of :func:`init_cache` (or a rank's
+    block, ``parallel.sharding.cache_block``) for incremental decoding,
+    written in place; pos_offset is the absolute position of tokens[:,0];
+    ctx: the :class:`ParallelCtx` whose mesh its MoE layers dispatch on
+    and its held blocks reduce over; ``last_only``: the logits of the
+    last position only (``[B, 1, V]``), as a serving step under a mesh
+    asks, so that ``[B, S, V]`` is never formed.
     """
     window = cfg.sliding_window if window is None else window
-    x = _embed(cfg, params, tokens, extra_embeds)
+    x = _embed(cfg, params, tokens, extra_embeds, ctx)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device) + pos_offset
     on = caches is None and remat(cfg, params)
@@ -375,8 +440,10 @@ def forward(cfg: ArchConfig, params, tokens, *, extra_embeds=None,
                              None if c is None else layer_cache(c, i))
         if c is not None:
             new_caches[group] = {**c, "len": c["len"] + S}
+    if last_only:
+        x = x[:, -1:]
     x = rmsnorm(params["ln_f"], x, cfg.rms_eps)
-    return _unembed(cfg, params, x), new_caches
+    return _unembed(cfg, params, x, ctx), new_caches
 
 
 def xent(logits, labels, ctx: ParallelCtx = ParallelCtx()):
@@ -436,7 +503,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def decode_step(cfg: ArchConfig, params, tokens1, caches, pos: int,
                 ctx: ParallelCtx = ParallelCtx()):
     """One incremental decode step: tokens1 [B,1] at absolute position pos
-    (``ctx`` goes to the forward's MoE layers)."""
+    (``ctx`` goes to the forward: its MoE layers and held blocks; under a
+    mesh ``caches`` is the rank's block)."""
     logits, new_caches = forward(cfg, params, tokens1, caches=caches,
                                  pos_offset=pos, ctx=ctx)
     return logits[:, -1], new_caches

@@ -21,6 +21,13 @@ stand-in).  :func:`to_placements` gives ``torch.distributed.tensor``
 placements per mesh dim, and :func:`local_shard` / :func:`gather_shards`
 cut this rank's block out of a replicated tensor and put it back, each
 differentiable with ``shard_map``'s transpose rule.
+
+How a rank holds each leaf (the reference leaves that to GSPMD, which
+reads it from the jitted step's argument shardings; the port reads it
+from the tensors): :func:`tp_spec` is the rule of tensor-parallel
+serving, :func:`held_params` cuts a whole tree by it, :func:`held_specs`
+reads each leaf's spec back from its shape (an expert stack's slice
+too), and :func:`cache_block` allocates a rank's decode caches.
 """
 from __future__ import annotations
 
@@ -365,3 +372,150 @@ def gather_shards(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     Differentiable: the backward takes this rank's block of the cotangent
     (see :class:`_GatherShards`)."""
     return _GatherShards.apply(block, spec, mesh)
+
+
+# ------------------------------------------------ how a rank holds a leaf
+#: the decoder family's leaves that tensor-parallel serving holds by their
+#: spec over 'model': GQA attention, the dense MLPs, the (un)embedding
+_TP_LEAF = re.compile(r"^(embed|unembed)$|(^|/)attn/(w[qkvo]|b[qkv])$"
+                      r"|(^|/)mlp/w[gud12]$")
+#: an MoE layer's routed expert stacks (the expert-parallel region's)
+_EXPERTS = re.compile(r"moe/w[gud]$")
+
+
+def held_shape(shape, spec: P, mesh) -> tuple:
+    """The shape of a rank's block of a ``shape`` tensor under ``spec``:
+    each sharded dim cut by its axes' size (the rules shard only dims
+    those sizes divide)."""
+    entries = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(int(d) // _axis_size(mesh, e) for d, e in zip(shape, entries))
+
+
+def tensor_parallel(cfg) -> bool:
+    """Whether ``cfg``'s family serves tensor-parallel: the decoder
+    family (dense, MoE and multimodal-prefix).  RWKV6, the hybrid and the
+    encoder-decoder hold every leaf whole."""
+    return not cfg.encdec and cfg.family in ("dense", "moe", "vlm")
+
+
+def heads_split(cfg, m: int) -> bool:
+    """Whether GQA attention splits over ``m`` 'model' ranks: ``m``
+    divides the ``H`` query heads, and each rank's ``H/m`` heads either
+    cover whole groups of ``G = H/Hkv`` (their kv heads are the rank's
+    own) or lie within one group (ranks share its kv head).  Where not
+    (starcoder2's 24 or smollm's 15 heads at 16), the attention leaves
+    are held whole: their specs would cut within a head."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if m <= 1 or H % m or H % Hkv:
+        return False
+    q, G = H // m, H // Hkv
+    return q % G == 0 or G % q == 0
+
+
+def kv_heads_held(cfg, mesh) -> range:
+    """The kv heads this rank's attention reads and its caches hold: those
+    of its ``H/m`` query heads where attention splits
+    (:func:`heads_split`), else all ``Hkv``.  Where ``m`` does not divide
+    ``Hkv`` this is one head that several ranks share, where the
+    reference's ``cache_specs_tree`` cuts the head dim instead."""
+    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    if not (tensor_parallel(cfg) and cfg.mla is None and heads_split(cfg, m)):
+        return range(cfg.n_kv_heads)
+    q, G = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    first = mesh.coords["model"] * q
+    return range(first // G, (first + q - 1) // G + 1)
+
+
+def tp_spec(cfg, path: str, shape, mesh) -> P:
+    """The spec tensor-parallel serving holds leaf ``path`` (of global
+    ``shape``) by on ``mesh``: ``spec_for_param``'s, over 'model' only,
+    for the decoder family's GQA attention where its heads split
+    (:func:`heads_split`), its dense MLPs and its (un)embedding; ``P()``
+    (whole) for every other leaf: norms, routers, an MoE layer's experts
+    (the expert-parallel region's own rule, :func:`held_specs`) and
+    shared expert, MLA attention, and every leaf of the other families.
+    The embedding ``[V, d]`` is cut over the vocab where ``m`` divides it
+    (not internvl2-26b's 92,553); the untied unembedding ``[d, V]``, which
+    the rule ``embed$`` matches first, over ``d``."""
+    if not (tensor_parallel(cfg) and _TP_LEAF.search(path)):
+        return P()
+    if "attn/" in path and (cfg.mla is not None or not heads_split(
+            cfg, mesh.shape.get("model", 1))):
+        return P()
+    spec = spec_for_param(path, tuple(shape), mesh)
+    return spec if any(e is not None for e in spec) else P()
+
+
+def _paths(tree, prefix: str = "") -> list:
+    """Each leaf's path (``a/b/c``), in the order of :func:`leaves`."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _paths(tree[k], f"{prefix}/{k}" if prefix else k)]
+    return [prefix]
+
+
+def held_params(cfg, params, mesh, prefix: str = ""):
+    """A whole param tree cut to this rank's held tree: each leaf by its
+    :func:`tp_spec` (a contiguous copy of its block), every other leaf as
+    it is (the same tensor).  ``prefix`` is the tree's path in the whole
+    tree (``"layers"`` for one layer's dict)."""
+    def one(path, t):
+        spec = tp_spec(cfg, _path_str((prefix,) + path if prefix else path),
+                       t.shape, mesh)
+        return _cut(t, spec, mesh).clone() if spec != P() else t
+
+    return _map(one, params)
+
+
+def param_shapes(model) -> list:
+    """The global shape of each of ``model``'s param leaves, in the order
+    of :func:`~repro_torch.tree.leaves` (from its ``init`` on ``meta``)."""
+    from ..tree import leaves
+
+    return [tuple(t.shape) for t in leaves(model.init(
+        torch.Generator(), torch.float32, device="meta"))]
+
+
+def held_specs(model, params, mesh, shapes: list) -> list:
+    """The spec of each leaf of ``params`` (in the order of
+    :func:`~repro_torch.tree.leaves`) as this rank holds it, read from its
+    shape against the global one (``shapes``, :func:`param_shapes`'): ``P()`` for a whole leaf; an expert stack held as its
+    ``[L, E/ep, ...]`` slice, its storage spec (``param_specs``'); any
+    other leaf held as a slice, its :func:`tp_spec`.  A leaf that is
+    neither whole nor the slice its rule gives is refused, the error
+    naming it."""
+    from ..tree import leaves
+
+    out = []
+    for path, t, shape in zip(_paths(params), leaves(params), shapes):
+        if tuple(t.shape) == shape:
+            out.append(P())
+            continue
+        spec = (spec_for_param(path, shape, mesh) if _EXPERTS.search(path)
+                else tp_spec(model.cfg, path, shape, mesh))
+        if held_shape(shape, spec, mesh) != tuple(t.shape):
+            raise ValueError(f"{path}: held as {tuple(t.shape)}, neither "
+                             f"whole {shape} nor its slice under {spec} "
+                             f"{held_shape(shape, spec, mesh)}")
+        out.append(spec)
+    return out
+
+
+def held_batch(n: int, mesh) -> int:
+    """Rows of a batch of ``n`` a serving rank holds: its block over the
+    dp axes where they divide ``n`` (``batch_specs``' dim 0), else all."""
+    dp_n = _axis_size(mesh, dp_axes(mesh))
+    return n // dp_n if n % dp_n == 0 else n
+
+
+def cache_block(model, batch: int, max_len: int, dtype, device, mesh):
+    """This rank's block of the decode caches of a ``batch`` of global
+    rows, allocated directly (the whole would not fit at full depth): its
+    :func:`held_batch` rows and, in the decoder family, the kv heads of
+    :func:`kv_heads_held`."""
+    from ..models import build_model
+
+    heads = kv_heads_held(model.cfg, mesh)
+    if len(heads) != model.cfg.n_kv_heads:
+        model = build_model(model.cfg.replace(n_kv_heads=len(heads)))
+    return model.init_cache(held_batch(batch, mesh), max_len, dtype, device)

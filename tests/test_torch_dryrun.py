@@ -91,7 +91,12 @@ def test_run_cell_walks_each_family_at_a_stand_in_mesh(smoke, arch):
         assert oc["flops"] > 0 and oc["launches"] > 0
         mem = rec["memory"]
         assert mem["peak_bytes"] >= mem["argument_bytes"] > 0
-        assert 0 < mem["by_specs"]["total"] < mem["argument_bytes"]
+        if sspec.kind == "train":
+            assert 0 < mem["by_specs"]["total"] < mem["argument_bytes"]
+        else:
+            # a serving cell holds its params by their specs (the decoder
+            # family's), which may leave nothing between the two
+            assert 0 < mem["by_specs"]["total"] <= mem["argument_bytes"]
         if sspec.kind == "prefill":
             kernel = {"rwkv6-1.6b": "wkv6", "zamba2-7b": "ssd"}.get(
                 arch, "flash_attention_hm")
@@ -116,7 +121,23 @@ def test_run_cell_walks_each_family_at_a_stand_in_mesh(smoke, arch):
                 cfg.n_layers - cfg.n_dense_layers)
             assert coll["all-gather"] > 0
         else:
-            assert rec["collectives"]["total_bytes"] == 0
+            # a serving step: the logits of the rank's rows gathered over
+            # 'data' (its bf16 [B/2, V] at the last position), and in the
+            # decoder family the row-parallel sums over 'model' (each
+            # layer's attention and dense MLP, the vocab-parallel
+            # embedding's lookup and an untied unembedding's partial
+            # logits: deepseek's MLA layers hold their attention whole,
+            # and its MoE layer no dense MLP)
+            counts = rec["collectives"]["counts"]
+            assert counts["all-to-all"] == 0
+            B = sspec.global_batch
+            assert coll["all-gather"] >= B // 2 * cfg.vocab * 2
+            tp = arch in ("llama3.2-1b", "granite-moe-1b-a400m",
+                          "internvl2-26b", "deepseek-v3-671b")
+            moe = (cfg.n_layers - cfg.n_dense_layers) if cfg.moe else 0
+            want = (cfg.n_layers * (1 if cfg.mla else 2) - moe + 1
+                    + (not cfg.tie_embeddings) if tp else 0)
+            assert counts["all-reduce"] == want, (counts, want)
 
 
 def _ref_bytes(shapes, specs, mesh) -> int:
@@ -272,3 +293,41 @@ def test_meta_init_draws_nothing():
     assert torch.equal(gen.get_state(), before)
     assert params["moe_layers"]["moe"]["wg"].shape[:2] == (
         cfg.n_layers - cfg.n_dense_layers, cfg.moe.n_experts)
+
+
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_serving_cell_holds_its_params_by_their_specs(shape):
+    """llama3.2-1b's serving cells at full size on the 256-rank stand-in:
+    rank 0 holds its params as tensor-parallel serving cuts them, within
+    1% of ``by_specs``' params (byte for byte here: every leaf's spec cuts
+    over 'model' only), and the walk records one all-reduce of the rank's
+    ``[B/16, S, d]`` bf16 activations for each row-parallel sum (each
+    layer's attention and MLP, the vocab-parallel embedding's lookup).
+    ``argument_bytes`` is those params, the global batch and the rank's
+    cache block (its 8 of 128 rows and the one kv head its two query heads
+    read, twice ``by_specs``' caches, which cut the head dim instead)."""
+    mesh = dryrun.make_dry_mesh(False)
+    cfg, _, args, by_specs = dryrun.build_cell("llama3.2-1b", shape, mesh)
+    held = _bytes(args[0])
+    assert abs(held - by_specs["params"]) <= 0.01 * by_specs["params"]
+    assert held == by_specs["params"]
+    rec = dryrun.run_cell("llama3.2-1b", shape, False, save=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["memory"]["argument_bytes"] == sum(_bytes(a) for a in args)
+    sspec = dryrun.SHAPES[shape]
+    S = 1 if sspec.kind == "decode" else sspec.seq_len
+    rows = sspec.global_batch // mesh.shape["data"]
+    coll = rec["collectives"]
+    assert coll["counts"]["all-reduce"] == 2 * cfg.n_layers + 1
+    assert coll["bytes"]["all-reduce"] == (2 * cfg.n_layers + 1) * (
+        rows * S * cfg.d_model * 2)
+    if sspec.kind == "decode":
+        cache = args[1]["dense"]["k"]
+        assert tuple(cache.shape) == (cfg.n_layers, rows, sspec.seq_len, 1,
+                                      cfg.hd())
+        assert _bytes(args[1]) == 2 * by_specs["caches"]
