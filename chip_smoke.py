@@ -18,8 +18,9 @@ whisper-tiny at full width, all three dense-or-recurrent families at tiny
 width, and under meshes llama3.2-1b data-parallel and
 granite-moe-1b-a400m expert-parallel at full width and depth.
 Parallelism: four ranks of ``torch.distributed``, and tensor-parallel
-serving of internvl2-26b (all 48 layers with four cards) and
-llama3.2-1b.
+serving of internvl2-26b (all 48 layers with four cards), llama3.2-1b
+and granite-moe-1b-a400m (its experts cut over the ranks; with four
+cards also deepseek-v3-671b at two layers).
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. the build of the four CUDA kernels from ``src/repro_torch/csrc``, one
@@ -53,7 +54,8 @@ llama3.2-1b.
    the card, in f32 and bf16, at the reference's test shapes (SSD's
    state handoff too) and at the serving path's shapes (flash's at
    llama3.2-1b's, granite-moe-1b-a400m's, whisper-tiny's and
-   internvl2-26b's prefill layers and phase 24's per-rank layers; WKV6's
+   internvl2-26b's prefill layers and phase 24's per-rank layers, granite's
+   on (2, 2) and (1, 4) among them; WKV6's
    also with
    decays of exactly 0 and 1, a sequence shorter than its stretch and
    D=128);
@@ -271,7 +273,19 @@ llama3.2-1b.
     prefill and decode ms, all-reduces and flash launches (one a layer on
     every rank, counted into flash's record; its plain version refused);
     the kernel at internvl2-26b's per-rank shape (q ``[2,12,4096,128]``,
-    k/v ``[2,2,4096,128]``) timed against its bound.
+    k/v ``[2,2,4096,128]``) timed against its bound; (d)
+    granite-moe-1b-a400m at full width and depth and its capacity 1.25,
+    its expert stacks held as ``param_specs`` cuts them (8 of 32 experts a
+    rank over data x model on (2, 2), over 'model' on (1, 4)): the prefill
+    step on both meshes and the serve loop on (2, 2) (B=4 x 512, 32
+    tokens, its decode teacher-forced on the one-rank tokens), each MoE
+    layer's top-k experts held against the one-rank run's (the tokens
+    whose set differs counted, at most ``TP_FLIP_SHARE`` of a call's) and
+    the logits within ``MODEL_TOL`` on every row no such token touched;
+    with four cards also deepseek-v3-671b cut to 2 layers (64 of its 256
+    experts a rank on (2, 2)): a cached prefill and a decode step the same
+    way (on one card a line says why it is left out); the flash kernel at
+    granite's two per-rank shapes timed against its bound.
 
 Every failed check raises, so the exit code is non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -385,12 +399,16 @@ FLASH_CASES = [
     (1, 2, 1, 100, 100, 64, True), (2, 16, 8, 4096, 4096, 64, True),
     (2, 6, 6, 4096, 4096, 64, True), (2, 48, 8, 4096, 4096, 128, True),
     (2, 12, 2, 4096, 4096, 128, True), (1, 16, 4, 4096, 4096, 64, True),
+    (1, 8, 4, 4096, 4096, 64, True), (2, 4, 2, 4096, 4096, 64, True),
 ]
 FLASH_PATH, FLASH_GRANITE, FLASH_WHISPER, FLASH_INTERNVL = (
     FLASH_CASES[4], FLASH_CASES[7], FLASH_CASES[8], FLASH_CASES[9])
 #: phase 24's per-rank shapes: internvl2-26b's 12 query and 2 kv heads on
 #: (1, 4), llama3.2-1b's row block, 16 and 4 heads, on (2, 2)
 FLASH_INTERNVL_TP, FLASH_LLAMA_TP = FLASH_CASES[10], FLASH_CASES[11]
+#: phase 24 (d)'s per-rank shapes: granite-moe-1b-a400m's row block, 8
+#: query and 4 kv heads, on (2, 2), and its 4 and 2 heads on (1, 4)
+FLASH_GRANITE_TP = {(2, 2): FLASH_CASES[12], (1, 4): FLASH_CASES[13]}
 #: wkv6 cases (B, S, H, D, with init_state): tests/test_kernels.py's
 #: shapes, then rwkv6-1.6b's serve prefill with and without a state and
 #: its make_prefill_step, then a sequence shorter than the kernel's
@@ -1584,6 +1602,9 @@ def check_kernels(dev) -> dict:
                 path_err["flash_attention_hm_internvl_tp"] = err
             if case == FLASH_LLAMA_TP and dtype == torch.float32:
                 path_err["flash_attention_hm_llama_tp"] = err
+            for shape, tp_case in FLASH_GRANITE_TP.items():
+                if case == tp_case and dtype == torch.float32:
+                    path_err[f"flash_attention_hm_granite_tp{shape}"] = err
         log(f"phase 9 flash_attention {tname} == plain version at "
             f"{len(FLASH_CASES)} shapes (B,H,Hkv,Sq,Skv,D,causal) "
             f"{FLASH_CASES}: max abs err {[f'{e:.3e}' for e in errs]} "
@@ -2659,10 +2680,10 @@ def layer_vs_cpu(fn, p, p_cpu, x, label: str) -> float:
     return err
 
 
-def flash_at(dev, cfg, label: str) -> dict:
-    """The flash kernel at a model's prefill-step shape (f32, causal): its
-    time (warm and with L2 flushed), the plain version's,
-    ``scaled_dot_product_attention``'s and the bound."""
+def flash_at(dev, cfg, label: str, batch: int = PREFILL_B) -> dict:
+    """The flash kernel at a model's prefill-step shape (f32, causal;
+    ``batch`` rows): its time (warm and with L2 flushed), the plain
+    version's, ``scaled_dot_product_attention``'s and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -2671,7 +2692,7 @@ def flash_at(dev, cfg, label: str) -> dict:
                                                      flash_attention_hm_torch)
 
     gen = torch.Generator(dev).manual_seed(8)
-    B, H, Hkv, S, D = (PREFILL_B, cfg.n_heads, cfg.n_kv_heads, PREFILL_S,
+    B, H, Hkv, S, D = (batch, cfg.n_heads, cfg.n_kv_heads, PREFILL_S,
                        cfg.hd())
     q = torch.randn((B, H, S, D), generator=gen, device=dev)
     k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev)
@@ -4372,6 +4393,47 @@ TP_VLM_DEPTH = 8
 #: where the four ranks share its 80 GB, 12 (9.23 GB a rank)
 TP_VLM_LAYERS, TP_VLM_DEPTH_ONE_CARD = 48, 12
 TP_SEED = 2500
+#: (d) granite-moe-1b-a400m at full width and depth and its own capacity
+#: 1.25: 8 of its 32 experts a rank over data x model on (2, 2) (each
+#: rank gathers both rows' tokens), over 'model' on (1, 4)
+TP_GRANITE_MESHES = ((2, 2), (1, 4))
+#: (d) deepseek-v3-671b cut to ``DEEPSEEK_CUT``'s 2 layers, a cached
+#: prefill and a decode step on (2, 2), 64 of its 256 experts a rank: with
+#: four cards (or on the CPU) only, as its 55.8 GB one-rank run and four
+#: ranks of about 17 GB would not fit one card
+TP_DEEPSEEK_MESH = (2, 2)
+
+
+def tp_granite_inputs(cfg, dev) -> dict:
+    """(d)'s inputs, drawn on ``dev`` from ``TP_SEED + 5``: the prefill
+    step's tokens ``[2, 4096]`` and the serve loop's prompts ``[4,
+    512]``."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(TP_SEED + 5)
+    return {"prefill": {"tokens": torch.randint(
+                0, cfg.vocab, (PREFILL_B, PREFILL_S), generator=gen,
+                device=dev)},
+            "prompts": torch.randint(0, cfg.vocab, (SERVE_B, SERVE_LP),
+                                     generator=gen, device=dev)}
+
+
+def routes_array(record: list) -> np.ndarray:
+    """``routing_recorded``'s calls of one shape as one uint8 array
+    ``[calls, tokens, k]`` (expert ids below 256)."""
+    return np.stack([r.cpu().numpy().astype(np.uint8) for r in record])
+
+
+def flipped_rows(got: list, want: np.ndarray, seq: int) -> tuple[list, set]:
+    """Per MoE call, the tokens whose set of top-k experts differs from
+    ``want``'s (the one-rank run's ``[calls, tokens, k]``), and the batch
+    rows (token // ``seq``) those tokens are in."""
+    flips, rows = [], set()
+    for x, y in zip(got, want, strict=True):
+        differ = (np.sort(x.cpu().numpy(), -1) != np.sort(y, -1)).any(-1)
+        flips.append(int(differ.sum()))
+        rows.update(int(t) // seq for t in np.flatnonzero(differ))
+    return flips, rows
 
 
 def tp_vlm_inputs(cfg, dev) -> dict:
@@ -4409,11 +4471,12 @@ def tp_llama_batch(cfg, dev) -> dict:
                                     generator=gen, device=dev)}
 
 
-def tp_references(dev) -> dict:
+def tp_references(dev, with_deepseek: bool) -> dict:
     """Phase 24's one-rank runs in this process, each freed before the
     ranks start: (a) internvl2-26b at 8 layers, its prefill step and the
     serve loop (its tokens and each step's logits); (c) llama3.2-1b's
-    prefill step.  NumPy, for the ranks."""
+    prefill step; (d) granite-moe-1b-a400m's and, ``with_deepseek``,
+    deepseek-v3-671b's.  NumPy, for the ranks."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4451,21 +4514,107 @@ def tp_references(dev) -> dict:
     out.update(c_prefill=prefill.cpu().numpy(), c_ms=t_prefill * 1e3)
     del params, prefill
     free_model(f"phase 24 (c) {LLAMA}, one rank")
+    out.update(tp_granite_reference(dev))
+    if with_deepseek:
+        out.update(tp_deepseek_reference(dev))
     return out
 
 
-def tp_rank(device, ref_path: str, vlm_layers: int) -> dict:
+def tp_granite_reference(dev) -> dict:
+    """(d)'s one-rank run: granite-moe-1b-a400m's prefill step and serve
+    loop with each MoE layer's top-k experts recorded."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    cfg = get_config(GRANITE).replace(attn_impl="cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(TP_SEED + 4),
+                        torch.float32, dev)
+    inp = tp_granite_inputs(cfg, dev)
+    routes, serve_routes = [], []
+    with torch.no_grad():
+        with routing_recorded(routes):
+            prefill, t_prefill = timed(lambda: make_prefill_step(model)(
+                params, inp["prefill"]))
+        with routing_recorded(serve_routes):
+            res = serve(cfg, gen=SERVE_G, device=dev, params=params,
+                        prompts=inp["prompts"])
+    check_generated(res, cfg.vocab, f"phase 24 (d) {GRANITE} one rank")
+    L = cfg.n_layers
+    out = {"d_prefill": prefill.cpu().numpy(),
+           "d_routes": routes_array(routes),
+           "d_tokens": res.tokens.cpu().numpy(),
+           "d_logits": torch.stack(res.logits, dim=1).cpu().numpy(),
+           "d_serve_routes": routes_array(serve_routes[:L]),
+           "d_step_routes": routes_array(serve_routes[L:]),
+           "d_ms": (t_prefill * 1e3, res.prefill_s * 1e3,
+                    res.decode_s_per_step * 1e3),
+           "d_peak": torch.cuda.max_memory_allocated()}
+    del params, prefill, res, inp
+    free_model(f"phase 24 (d) {GRANITE}, one rank")
+    return out
+
+
+def tp_deepseek_reference(dev) -> dict:
+    """(d)'s deepseek-v3-671b one-rank run at 2 layers: the prompts
+    prefilled into fresh caches and one greedy decode step, with the MoE
+    layer's top-k experts recorded."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (make_cache_prefill_step,
+                                          make_decode_step)
+    from repro_torch.models import build_model
+
+    cfg = get_config(DEEPSEEK).replace(**DEEPSEEK_CUT, attn_impl="cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(TP_SEED + 6),
+                        torch.float32, dev)
+    prompts = tp_granite_inputs(cfg, dev)["prompts"]
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    routes = []
+    with torch.no_grad(), routing_recorded(routes):
+        caches = model.init_cache(SERVE_B, SERVE_LP + 2, torch.float32, dev)
+        (prefill, caches), t_prefill = timed(lambda: make_cache_prefill_step(
+            model)(params, caches, {"tokens": prompts}))
+        tok = torch.argmax(prefill, dim=-1)[:, None]
+        (decode, _), t_decode = timed(lambda: make_decode_step(model)(
+            params, caches, {"tokens1": tok, "pos": SERVE_LP}))
+    out = {"e_prefill": prefill.cpu().numpy(),
+           "e_decode": decode.cpu().numpy(), "e_token": tok.cpu().numpy(),
+           "e_routes": routes_array(routes[:n_moe]),
+           "e_step_routes": routes_array(routes[n_moe:]),
+           "e_ms": (t_prefill * 1e3, t_decode * 1e3),
+           "e_peak": torch.cuda.max_memory_allocated()}
+    del params, caches, prefill, decode
+    free_model(f"phase 24 (d) {DEEPSEEK} at 2 layers, one rank")
+    return out
+
+
+def tp_rank(device, ref_path: str, vlm_layers: int,
+            with_deepseek: bool = False) -> dict:
     """Phase 24 on one of four ranks: (a) internvl2-26b at 8 layers and
     (b) at ``vlm_layers`` on a (1, 4) mesh, (c) llama3.2-1b on (2, 2),
-    each rank drawing its held params layer by layer from the seed of
-    the parent's one-rank runs, whose results ``ref`` (the ``.npz`` at
-    ``ref_path``) holds.  (a): the prefill step and the serve loop
-    held against ``ref``'s, the decode teacher-forced on its tokens; (b)
-    the same two, its decode held against the tensor-parallel forward
-    over prefix, prompt and generated tokens; (c) the prefill step
-    against ``ref``'s.  Each step through the flash kernel (counted, its
-    plain version refused); the held bytes against ``param_specs``', the
-    peak memory, the times, the all-reduces' count and bytes."""
+    (d) granite-moe-1b-a400m on (2, 2) and (1, 4) and, ``with_deepseek``,
+    deepseek-v3-671b at 2 layers on (2, 2), each rank drawing its held
+    params layer by layer from the seed of the parent's one-rank runs,
+    whose results ``ref`` (the ``.npz`` at ``ref_path``) holds.  (a): the
+    prefill step and the serve loop held against ``ref``'s, the decode
+    teacher-forced on its tokens; (b) the same two, its decode held
+    against the tensor-parallel forward over prefix, prompt and
+    generated tokens; (c) the prefill step against ``ref``'s; (d) the
+    prefill step on both meshes and, on (2, 2), the serve loop and its
+    decode teacher-forced on ``ref``'s tokens, each MoE layer's top-k
+    experts against ``ref``'s and the logits on the rows no flip
+    touched; deepseek a cached prefill and a decode step the same way.
+    Each step through the flash kernel (counted, its plain version
+    refused; deepseek's MLA takes none); the held bytes against
+    ``param_specs``', the peak memory, the times, the all-reduces' and
+    all-gathers' count and bytes."""
     import torch
     import torch.distributed as dist
 
@@ -4498,14 +4647,19 @@ def tp_rank(device, ref_path: str, vlm_layers: int) -> dict:
               for shape in (TP_MESH, TP_LLAMA_MESH)}
     res["t_meshes"] = time.time()
     nccl = dist.get_backend() == "nccl"
-    reduced = collections.Counter()
-    orig = collectives._all_reduce
+    reduced, gathered = collections.Counter(), collections.Counter()
+    orig, orig_gather = collectives._all_reduce, dist.all_gather
 
     def counting(x, group, op):
         if group.pg is not None:
             reduced["count"] += 1
             reduced["bytes"] += x.numel() * x.element_size()
         return orig(x, group, op)
+
+    def counting_gather(parts, src, *args, **kwargs):
+        gathered["count"] += 1
+        gathered["bytes"] += src.numel() * src.element_size()
+        return orig_gather(parts, src, *args, **kwargs)
 
     def sync():
         torch.cuda.synchronize(device)
@@ -4522,8 +4676,16 @@ def tp_rank(device, ref_path: str, vlm_layers: int) -> dict:
         sync()
         flash_attention_hm.launches = 0
         reduced.clear()
+        gathered.clear()
         out, dt = timed(fn)
         return out, dt, flash_attention_hm.launches, dict(reduced)
+
+    def close_rows(got, want, touched) -> tuple[float, bool]:
+        """``close`` on the rows no routing flip touched; with every row
+        touched, nothing is compared and the check fails."""
+        keep = [b for b in range(got.shape[0]) if b not in touched]
+        return close(got[keep], want[keep]) if keep else (float("inf"),
+                                                          False)
 
     def held_model(cfg, mesh, seed):
         model = build_model(cfg)
@@ -4612,34 +4774,285 @@ def tp_rank(device, ref_path: str, vlm_layers: int) -> dict:
         del params
         return out
 
+    def granite_serve(cfg, model, params, ctx, inp) -> dict:
+        """(d)'s serve loop on (2, 2), then its decode teacher-forced on
+        the one-rank tokens, each step's routing against the one rank's
+        and its logits on the rows no flip has touched."""
+        out = {}
+        reduced.clear()
+        gathered.clear()
+        served = serve(cfg, gen=SERVE_G, device=device, params=params,
+                       prompts=inp["prompts"], ctx=ctx)
+        out["serve_ms"] = (served.prefill_s * 1e3,
+                           served.decode_s_per_step * 1e3)
+        out["serve_reduced"], out["serve_gathered"] = (dict(reduced),
+                                                       dict(gathered))
+        out["tokens"] = served.tokens.cpu().numpy()
+        del served
+        L = cfg.n_layers
+        caches = cache_block(model, SERVE_B, SERVE_LP + SERVE_G + 1,
+                             torch.float32, device, ctx.mesh)
+        routes = []
+        with routing_recorded(routes):
+            logits, caches = make_cache_prefill_step(model, ctx)(
+                params, caches, {"tokens": inp["prompts"]})
+        flips, touched = flipped_rows(routes, ref["d_serve_routes"],
+                                      SERVE_LP)
+        errs = [close_rows(logits, ref["d_logits"][:, 0], touched)]
+        decode = make_decode_step(model, ctx)
+        tokens = torch.from_numpy(ref["d_tokens"]).to(device)
+        step_flips = []
+        for i in range(SERVE_G - 1):
+            routes = []
+            with routing_recorded(routes):
+                logits, caches = decode(params, caches, {
+                    "tokens1": tokens[:, i:i + 1], "pos": SERVE_LP + i})
+            f, rows = flipped_rows(routes, ref["d_step_routes"][
+                i * L:(i + 1) * L], 1)
+            step_flips.append(sum(f))
+            touched |= rows
+            errs.append(close_rows(logits, ref["d_logits"][:, i + 1],
+                                   touched))
+        out["serve_flips"] = (sum(flips), step_flips)
+        out["serve_rows_touched"] = sorted(touched)
+        out["decode_err"] = max(e for e, _ in errs)
+        out["decode_ok"] = all(ok for _, ok in errs)
+        out["cache_heads"] = caches["moe"]["k"].shape[3]
+        del caches, logits
+        return out
+
+    def granite() -> dict:
+        cfg = get_config(GRANITE).replace(attn_impl="cuda")
+        res_d = {}
+        for shape in TP_GRANITE_MESHES:
+            ctx = ParallelCtx(mesh=meshes[shape], dp_spec="data")
+            model, params, out = held_model(cfg, ctx.mesh, TP_SEED + 4)
+            out["experts"] = params["moe_layers"]["moe"]["wg"].shape[1]
+            inp = tp_granite_inputs(cfg, device)
+            step = make_prefill_step(model, ctx)
+            routes = []
+            with routing_recorded(routes):
+                got, dt, out["launches"], out["prefill_reduced"] = counted(
+                    lambda: step(params, inp["prefill"]))
+            out["prefill_gathered"] = dict(gathered)
+            out["prefill_ms"] = [dt * 1e3]
+            out["prefill_shape"] = tuple(got.shape)
+            out["finite"] = bool(torch.isfinite(got).all())
+            out["flips"], touched = flipped_rows(routes, ref["d_routes"],
+                                                 PREFILL_S)
+            out["rows_touched"] = sorted(touched)
+            out["prefill_err"], out["prefill_ok"] = close_rows(
+                got, ref["d_prefill"], touched)
+            out["prefill_err_all"] = close(got, ref["d_prefill"])[0]
+            del got, routes
+            if shape == TP_GRANITE_MESHES[0]:
+                out.update(granite_serve(cfg, model, params, ctx, inp))
+            out["peak"] = torch.cuda.max_memory_allocated(device)
+            del params, inp
+            release()
+            res_d[shape] = out
+        return res_d
+
+    def deepseek() -> dict:
+        cfg = get_config(DEEPSEEK).replace(**DEEPSEEK_CUT, attn_impl="cuda")
+        ctx = ParallelCtx(mesh=meshes[TP_DEEPSEEK_MESH], dp_spec="data")
+        model, params, out = held_model(cfg, ctx.mesh, TP_SEED + 6)
+        out["experts"] = params["moe_layers"]["moe"]["wg"].shape[1]
+        prompts = tp_granite_inputs(cfg, device)["prompts"]
+        n_moe = cfg.n_layers - cfg.n_dense_layers
+        caches = cache_block(model, SERVE_B, SERVE_LP + 2, torch.float32,
+                             device, ctx.mesh)
+        tok = torch.from_numpy(ref["e_token"]).to(device)
+        routes = []
+        with routing_recorded(routes):
+            (prefill, caches), t_prefill, out["launches"], \
+                out["reduced"] = counted(lambda: make_cache_prefill_step(
+                    model, ctx)(params, caches, {"tokens": prompts}))
+            (dec, _), t_decode = timed(lambda: make_decode_step(model, ctx)(
+                params, caches, {"tokens1": tok, "pos": SERVE_LP}))
+        out["gathered"] = dict(gathered)
+        flips, touched = flipped_rows(routes[:n_moe], ref["e_routes"],
+                                      SERVE_LP)
+        out["prefill_err"], out["prefill_ok"] = close_rows(
+            prefill, ref["e_prefill"], touched)
+        step_flips, rows = flipped_rows(routes[n_moe:], ref["e_step_routes"],
+                                        1)
+        touched |= rows
+        out["decode_err"], out["decode_ok"] = close_rows(
+            dec, ref["e_decode"], touched)
+        out["flips"], out["rows_touched"] = (flips, step_flips), sorted(
+            touched)
+        out["ms"] = (t_prefill * 1e3, t_decode * 1e3)
+        out["prefill_shape"] = tuple(dec.shape)
+        out["finite"] = bool(torch.isfinite(prefill).all()
+                             and torch.isfinite(dec).all())
+        out["peak"] = torch.cuda.max_memory_allocated(device)
+        del params, caches, prefill, dec
+        return out
+
     def release():
         gc.collect()
         torch.cuda.empty_cache()
 
+    runs = (("a", lambda: vlm(TP_VLM_DEPTH)), ("b", lambda: vlm(vlm_layers)),
+            ("c", llama), ("d", granite)) + (
+        (("e", deepseek),) if with_deepseek else ())
     with torch.no_grad(), plain_refused(fa_mod, "flash_attention_hm_torch"), \
-            swapped(collectives, "_all_reduce", counting):
-        for key, run in (("a", lambda: vlm(TP_VLM_DEPTH)),
-                         ("b", lambda: vlm(vlm_layers)), ("c", llama)):
+            swapped(collectives, "_all_reduce", counting), \
+            swapped(dist, "all_gather", counting_gather):
+        for key, run in runs:
             t0 = time.perf_counter()
             res[key] = run()
-            res[key]["s"] = time.perf_counter() - t0
+            res[f"{key}_s"] = time.perf_counter() - t0
             release()
             sync()
     res["t_out"] = time.time()
     return res
 
 
+#: a routing flip (a token whose top-k experts differ from the one-rank
+#: run's) comes from a near-tie under the sums' other order; more than
+#: this share of an MoE call's tokens is a fault, not a tie
+TP_FLIP_SHARE = 0.01
+
+
+def tp_moe_checked(ranks: list, ref: dict, transport: str, cards: int,
+                   card: str) -> dict:
+    """Phase 24 (d)'s results checked and logged: every rank's logits
+    finite, of the global shape, within ``MODEL_TOL`` of the one-rank
+    run's on the rows no routing flip touched, its flips within
+    ``TP_FLIP_SHARE``, its held bytes granite's ``param_specs``', its
+    flash launches one a layer.  Returns the flash launches of each
+    prefill step, summed over the ranks."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(GRANITE)
+    launches = {}
+
+    def checked(label, x, r, flips, tokens, held_exact=True, depth=None):
+        """``flips``: the tokens that flipped in each MoE call of
+        ``tokens``."""
+        bad = [k for k in ("prefill_ok", "decode_ok") if k in x
+               and not x[k]]
+        many = [f for f in flips if f > TP_FLIP_SHARE * tokens]
+        if r["transport"] != transport or bad or many \
+                or not x["finite"] or (depth is not None
+                                       and x["launches"] != depth) \
+                or (held_exact and x["held"] != x["by_specs"]):
+            raise AssertionError(
+                f"phase 24 {label} rank {r['rank']} over {r['transport']}: "
+                f"failed {bad}, flips {flips} (more than {TP_FLIP_SHARE} of "
+                f"{tokens} tokens: {many}), flash launches "
+                f"{x['launches']} for {depth} layers, held {x['held']} "
+                f"bytes against {x['by_specs']} by the specs, "
+                + ", ".join(f"{k} {x[k]}" for k in (
+                    "prefill_err", "decode_err", "prefill_shape",
+                    "finite") if k in x))
+
+    for shape in TP_GRANITE_MESHES:
+        label = f"(d) {GRANITE} on {shape}"
+        rs = [r["d"][shape] for r in ranks]
+        for r, x in zip(ranks, rs):
+            checked(label, x, r, x["flips"], PREFILL_B * PREFILL_S,
+                    depth=cfg.n_layers)
+            if "serve_flips" in x:
+                prefill, steps = x["serve_flips"]
+                L = cfg.n_layers
+                checked(f"{label} serve prefill", x, r, [prefill],
+                        SERVE_B * SERVE_LP * L)
+                checked(f"{label} decode", x, r, [sum(steps)],
+                        (SERVE_G - 1) * SERVE_B * L)
+            if x["prefill_shape"] != (PREFILL_B, cfg.vocab):
+                raise AssertionError(f"phase 24 {label}: logits "
+                                     f"{x['prefill_shape']}")
+        launches[f"d{shape}"] = sum(x["launches"] for x in rs)
+        log(f"phase 24 {label} over {transport}, {cards} cards, {card}: "
+            f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, capacity "
+            f"{cfg.moe.capacity_factor}, {rs[0]['experts']} a rank; held "
+            f"param bytes a rank {[x['held'] for x in rs]} "
+            f"({rs[0]['held'] / 1e9:.3f} GB; param_specs' "
+            f"{rs[0]['by_specs']}); peak device memory a rank "
+            f"{[x['peak'] for x in rs]} bytes; make_prefill_step "
+            f"B={PREFILL_B} S={PREFILL_S} ms a rank "
+            f"{[round(x['prefill_ms'][0], 1) for x in rs]} (first call; one "
+            f"rank {ref['d_ms'][0]:.1f} ms, peak {ref['d_peak']} bytes); "
+            f"flash launches a rank {[x['launches'] for x in rs]}; "
+            f"all-reduces a rank {[x['prefill_reduced'] for x in rs]}, "
+            f"all-gathers {[x['prefill_gathered'] for x in rs]}; tokens "
+            f"whose top-k experts differ from one rank's, layer by layer, "
+            f"rank 0 {rs[0]['flips']} ("
+            + ("the same on every rank" if all(
+                x["flips"] == rs[0]["flips"] for x in rs) else
+               f"ranks {[x['flips'] for x in rs]}")
+            + f"), rows touched {[x['rows_touched'] for x in rs]}; last "
+            f"logits vs one rank on the other rows max abs "
+            f"{max(x['prefill_err'] for x in rs):.3e} (tol {MODEL_TOL}; "
+            f"every row {max(x['prefill_err_all'] for x in rs):.3e})")
+        if "serve_ms" not in rs[0]:
+            continue
+        agree = int((rs[0]["tokens"] == ref["d_tokens"]).sum())
+        log(f"phase 24 {label} serve B={SERVE_B}, a {SERVE_LP}-token "
+            f"prompt, {SERVE_G} tokens: prefill ms / decode ms a step a "
+            f"rank {[tuple(round(t, 2) for t in x['serve_ms']) for x in rs]}"
+            f" (one rank {ref['d_ms'][1]:.1f} / {ref['d_ms'][2]:.2f}); "
+            f"all-reduces a rank over the loop "
+            f"{[x['serve_reduced'] for x in rs]}, all-gathers "
+            f"{[x['serve_gathered'] for x in rs]}; decode teacher-forced "
+            f"on the one-rank tokens: routing flips (prefill, each step) "
+            f"rank 0 {rs[0]['serve_flips']}, rows touched "
+            f"{[x['serve_rows_touched'] for x in rs]}, logits vs one rank "
+            f"on the other rows max abs "
+            f"{max(x['decode_err'] for x in rs):.3e} (tol {MODEL_TOL}); "
+            f"cache {rs[0]['cache_heads']} of {cfg.n_kv_heads} kv heads a "
+            f"rank; greedy tokens equal to one rank's {agree} of "
+            f"{ref['d_tokens'].size}; sample ids {rs[0]['tokens'][0, :8]}")
+        toks = [x["tokens"] for x in rs]
+        if any(not np.array_equal(t, toks[0]) for t in toks):
+            raise AssertionError(f"phase 24 {label}: the ranks' greedy "
+                                 f"tokens differ")
+    if "e" not in ranks[0]:
+        return launches
+    dcfg = get_config(DEEPSEEK)
+    label = f"(d) {DEEPSEEK} at {DEEPSEEK_CUT['n_layers']} layers on " \
+            f"{TP_DEEPSEEK_MESH}"
+    rs = [r["e"] for r in ranks]
+    for r, x in zip(ranks, rs):
+        checked(label, x, r, x["flips"][0] + x["flips"][1],
+                SERVE_B * SERVE_LP, held_exact=False)
+        if x["prefill_shape"] != (SERVE_B, dcfg.vocab):
+            raise AssertionError(f"phase 24 {label}: logits "
+                                 f"{x['prefill_shape']}")
+    log(f"phase 24 {label} over {transport}, {cards} cards, {card}: "
+        f"{rs[0]['experts']} of {dcfg.moe.n_experts} experts a rank; held "
+        f"param bytes a rank {[x['held'] for x in rs]} (param_specs' "
+        f"{rs[0]['by_specs']}; its MLA attention held whole); peak device "
+        f"memory a rank {[x['peak'] for x in rs]} bytes; cached prefill "
+        f"B={SERVE_B} x {SERVE_LP} / decode step ms a rank "
+        f"{[tuple(round(t, 1) for t in x['ms']) for x in rs]} (one rank "
+        f"{ref['e_ms'][0]:.1f} / {ref['e_ms'][1]:.1f}, peak "
+        f"{ref['e_peak']} bytes); all-reduces a rank in the prefill "
+        f"{[x['reduced'] for x in rs]}; routing flips (prefill, decode) "
+        f"rank 0 {rs[0]['flips']}, rows touched "
+        f"{[x['rows_touched'] for x in rs]}; logits vs one rank on the "
+        f"other rows max abs prefill "
+        f"{max(x['prefill_err'] for x in rs):.3e}, decode "
+        f"{max(x['decode_err'] for x in rs):.3e} (tol {MODEL_TOL})")
+    return launches
+
+
 def tp_path(dev, card) -> dict:
     """Phase 24, after phase 23: tensor-parallel serving through
     ``run_ranks``, four ranks (NCCL with each its own card when the host
     has four, else gloo on the one card with every exchange staged
-    through the host).  The one-rank runs of (a) and (c) first, in this
-    process (:func:`tp_references`), then one call of :func:`tp_rank`,
-    whose results are checked here: every rank's logits finite, of the
-    global shape, within ``MODEL_TOL``, its held bytes equal to
-    ``param_specs``', its flash launches one a layer.  Returns the flash
-    launches of each prefill step, summed over the ranks, the flash
-    kernel's record at internvl2-26b's per-rank shape and (b)'s layers."""
+    through the host).  The one-rank runs of (a), (c) and (d) first, in
+    this process (:func:`tp_references`), then one call of
+    :func:`tp_rank`, whose results are checked here (and (d)'s in
+    :func:`tp_moe_checked`): every rank's logits finite, of the global
+    shape, within ``MODEL_TOL``, its held bytes equal to ``param_specs``',
+    its flash launches one a layer.  Returns the flash launches of each
+    prefill step, summed over the ranks, the flash kernel's record at
+    internvl2-26b's per-rank shape, (b)'s layers and the kernel's records
+    at granite's per-rank shapes."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4654,12 +5067,17 @@ def tp_path(dev, card) -> dict:
     how = ("each rank its own card" if transport == "nccl" else
            "the ranks share one device, CUDA tensors staged through the host"
            if dev.type == "cuda" else "CPU tensors")
+    with_deepseek = transport == "nccl" or dev.type == "cpu"
     log(f"phase 24 transport: {transport} ({how}), {TP_RANKS} ranks, "
         f"{cards} cards, {card}; (b) {VLM} at {layers} of "
         f"{TP_VLM_LAYERS} layers"
         + ("" if layers == TP_VLM_LAYERS else
-           f" (depth cut: the four ranks share one card)"))
-    ref, t_ref = timed(lambda: tp_references(dev))
+           f" (depth cut: the four ranks share one card)")
+        + ("" if with_deepseek else
+           f"; (d) {DEEPSEEK} left out: its one-rank run's 55.8 GB and "
+           f"four ranks of about 17 GB do not fit one card (four cards "
+           f"run it)"))
+    ref, t_ref = timed(lambda: tp_references(dev, with_deepseek))
     # to the ranks through a file: a spawned rank's arguments go down a
     # pipe that the parent fills one rank at a time, each as that rank
     # starts, so tens of MB of them serialise the ranks' start
@@ -4669,8 +5087,8 @@ def tp_path(dev, card) -> dict:
     t_call = time.time()
     try:
         ranks, t_ranks = timed(lambda: run_ranks(
-            tp_rank, TP_RANKS, str(ref_path), layers, device=dev.type,
-            backend=transport, timeout=900))
+            tp_rank, TP_RANKS, str(ref_path), layers, with_deepseek,
+            device=dev.type, backend=transport, timeout=900))
     finally:
         ref_path.unlink()
     vcfg, lcfg = get_config(VLM), get_config(LLAMA)
@@ -4748,16 +5166,22 @@ def tp_path(dev, card) -> dict:
     log(f"phase 24 wall {time.perf_counter() - t_phase:.1f} s on {card}: "
         f"one-rank runs {t_ref:.1f} s, run_ranks {t_ranks:.1f} s (the ranks "
         f"entered {after('t_in'):.1f} s after the call, had their meshes at "
-        f"{after('t_meshes'):.1f} s, left at {after('t_out'):.1f} s; (a) "
-        f"{max(r['a']['s'] for r in ranks):.1f} s, (b) "
-        f"{max(r['b']['s'] for r in ranks):.1f} s, (c) "
-        f"{max(r['c']['s'] for r in ranks):.1f} s)")
+        f"{after('t_meshes'):.1f} s, left at {after('t_out'):.1f} s; "
+        + ", ".join(f"({k}) {max(r[f'{k}_s'] for r in ranks):.1f} s"
+                    for k in "abcde" if f"{k}_s" in ranks[0]) + ")")
+    launches.update(tp_moe_checked(ranks, ref, transport, cards, card))
     free_model("phase 24")
     flash = flash_at(dev, vcfg.replace(
         head_dim=vcfg.hd(), n_heads=vcfg.n_heads // TP_MESH[1],
         n_kv_heads=max(1, vcfg.n_kv_heads // TP_MESH[1])),
         "phase 24 a rank's")
-    return launches, flash, layers
+    gcfg = get_config(GRANITE)
+    at_granite = {shape: flash_at(dev, gcfg.replace(
+        head_dim=gcfg.hd(), n_heads=gcfg.n_heads // shape[1],
+        n_kv_heads=max(1, gcfg.n_kv_heads // shape[1])),
+        f"phase 24 (d) a rank's on {shape}", batch=PREFILL_B // shape[0])
+        for shape in TP_GRANITE_MESHES}
+    return launches, flash, layers, at_granite
 
 
 def flash_record(dev, launches: int, path_err: dict, occupancy: dict) -> dict:
@@ -5277,10 +5701,12 @@ def main() -> int:
                              f"{at_internvl['bound_ms']}")
     cost_path(dev, card)
     train_mesh_path(dev, card)
-    tp, at_tp, tp_layers = tp_path(dev, card)
+    tp, at_tp, tp_layers, at_granite_tp = tp_path(dev, card)
     for key, what in (("a", f"{VLM} at {TP_VLM_DEPTH} layers"),
                       ("b", f"{VLM} at {tp_layers} layers"),
-                      ("c", f"{LLAMA} on {TP_LLAMA_MESH}")):
+                      ("c", f"{LLAMA} on {TP_LLAMA_MESH}"),
+                      *((f"d{shape}", f"{GRANITE} on {shape}")
+                        for shape in TP_GRANITE_MESHES)):
         fa["launches_by_path"][f"{what}, tensor-parallel make_prefill_step, "
                                f"{TP_RANKS} ranks"] = tp[key]
         fa["launches"] += tp[key]
@@ -5295,6 +5721,15 @@ def main() -> int:
         raise AssertionError(f"flash_attention_hm at {VLM}'s per-rank shape: "
                              f"{at_tp['ms']} ms is below its bound "
                              f"{at_tp['bound_ms']}")
+    fa["at_granite_tensor_parallel"] = {
+        str(shape): {**rec, "launches": tp[f"d{shape}"], "max_abs_err":
+                     path_err[f"flash_attention_hm_granite_tp{shape}"]}
+        for shape, rec in at_granite_tp.items()}
+    for shape, rec in at_granite_tp.items():
+        if not rec["bound_ms"] <= rec["ms"]:
+            raise AssertionError(f"flash_attention_hm at {GRANITE}'s "
+                                 f"per-rank shape on {shape}: {rec['ms']} "
+                                 f"ms is below its bound {rec['bound_ms']}")
     finish_dryrun(walks)
     log(f"kernel times on {card}")
     log(f"script wall {time.perf_counter() - t_script:.3f} s on {card}")

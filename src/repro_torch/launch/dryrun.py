@@ -37,15 +37,18 @@ reference's sharded ``argument_size_in_bytes``.  ``memory.argument_bytes``
 is what the port holds on a rank: the global batch, of which a step
 computes on its block, and the params: a serving cell's as
 ``parallel.sharding.held_params`` cuts them (the decoder family's
-attention, MLP and vocabulary over 'model') with its expert slices, a
-train cell's whole but for the expert slices; a decode cell's caches are
-the rank's block (``sharding.cache_block``: its rows and the kv heads
-its attention reads, where ``cache_specs_tree`` cuts the head dim when
+attention, MLP, shared expert and vocabulary over 'model', its routed
+expert stacks over their expert axes, whether the einsum or the
+expert-parallel form runs them), a train cell's whole but for the expert
+slices of its expert-parallel region; a decode cell's caches are the
+rank's block (``sharding.cache_block``: its rows and the kv heads its
+attention reads, where ``cache_specs_tree`` cuts the head dim when
 'model' does not divide the kv heads).  What remains between the two is
-the train step's tensor parallelism and ZeRO and the other families'
-tensor parallelism, which the port does not run (ROADMAP.md, Queue 1).
-A serving cell records the row-parallel sums under ``all-reduce`` and
-the logits' gathers under ``all-gather``.
+the train step's tensor parallelism and ZeRO, MLA attention and the
+other families' tensor parallelism, which the port does not run
+(ROADMAP.md, Queue 1).  A serving cell records the row-parallel sums and
+the MoE layers' combines under ``all-reduce``, and the logits' gathers
+and the MoE layers' token gathers under ``all-gather``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape prefill_32k
@@ -140,8 +143,8 @@ def spec_bytes(tree, specs, mesh) -> int:
 
 def _cut_experts(params, ep_size: int):
     """``params`` with each MoE stack's routed expert leaves ``[L, E,
-    ...]`` replaced by this rank's ``[L, E / ep_size, ...]``, as the
-    expert-parallel path holds them."""
+    ...]`` replaced by this rank's ``[L, E / ep_size, ...]``, as a train
+    step's expert-parallel region holds them."""
     moe = params["moe_layers"]["moe"]
     cut = {name: torch.empty((w.shape[0], w.shape[1] // ep_size)
                              + tuple(w.shape[2:]), dtype=w.dtype,
@@ -192,10 +195,10 @@ def build_cell(arch: str, shape: str, mesh, *, opt_bits: int = 0,
     by_specs["total"] = sum(by_specs.values())
 
     if not train:
+        # the expert stacks too, whichever form runs them
         params = held_params(cfg, params, mesh)
-    if cfg.moe is not None:
-        S = 1 if sspec.kind == "decode" else sspec.seq_len
-        ep_axis = ep_axis_for(cfg, sspec.global_batch, S, mesh)
+    elif cfg.moe is not None:
+        ep_axis = ep_axis_for(cfg, sspec.global_batch, sspec.seq_len, mesh)
         if ep_axis is not None:
             params = _cut_experts(params, _axis_size(mesh, ep_axis))
     if train:

@@ -16,8 +16,10 @@ returns the global last-position logits on every rank, as its
 ``out_shardings=P()`` does.  It takes the global batch and computes on
 the rank's block (:func:`serving_block`); the params are as the rank
 holds them (``parallel.sharding.held_params``: the decoder family's
-attention, MLP and vocabulary as their blocks over 'model', or whole),
-and the decode caches are the rank's block (``sharding.cache_block``).
+attention, MLP, shared expert and vocabulary as their blocks over
+'model', its routed expert stacks as its slice of the experts, or
+whole), and the decode caches are the rank's block
+(``sharding.cache_block``).
 
 A train step under a mesh computes what the reference's sharded step
 computes (see :func:`value_and_grad`): data parallelism over the dp axes
@@ -244,8 +246,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 def _serving(model: Model, ctx: ParallelCtx, batch: dict):
     """``(block, cut, ctx, kw)`` of a serving step: the rank's batch
     block, whether it was cut, the ctx its forward takes (``dp_block``
-    where it was cut) and, for the decoder family under a mesh, the
-    forward's ``last_only``."""
+    where it was cut: an MoE layer reads from it that its tokens are one
+    dp block, so that the global token count, which forms the groups and
+    capacity of the einsum form, is its own times the dp ranks) and, for
+    the decoder family under a mesh, the forward's ``last_only``."""
     if not _meshed(ctx):
         return batch, False, ctx, {}
     block, cut = serving_block(batch, ctx.mesh)

@@ -470,7 +470,8 @@ def moe_groups(cfg: ArchConfig, T: int) -> tuple[int, int, int]:
                                    * mo.capacity_factor))
 
 
-def moe_einsum_apply(p, x, cfg: ArchConfig):
+def moe_einsum_apply(p, x, cfg: ArchConfig, *, tokens: Optional[int] = None,
+                     first_expert: int = 0):
     """Switch-style capacity dispatch with *grouped* one-hot einsums.
 
     Tokens are split into ``G`` groups of ``Tg`` (``group_size``, or one
@@ -478,15 +479,29 @@ def moe_einsum_apply(p, x, cfg: ArchConfig):
     of a group, in token order, and the rest are dropped.  The dispatch
     tensor is [G, Tg, E, C].  The combine weights are built in f32 and cast
     to x's dtype before the combine einsum, as the reference does.
+
+    ``tokens``: the count :func:`moe_groups` forms ``Tg`` and ``C`` from,
+    ``x``'s own by default; a rank whose ``x`` is a whole number of the
+    global batch's groups passes the global count.  ``p``'s expert stacks
+    may hold a range ``[first_expert, first_expert + E_loc)`` of the ``E``
+    experts (a rank's slice): routing reads all ``E`` and each position is
+    the cumsum of its own expert's one-hot column, so the range changes no
+    position and no drop; the result is the range's part of the routed
+    sum (plus the shared expert as ``p`` holds it), for the caller to sum
+    over the ranks.
     """
     mo = cfg.moe
     B, S, d = x.shape
     T = B * S
-    E, k = mo.n_experts, mo.top_k
-    G, Tg, C = moe_groups(cfg, T)
+    k = mo.top_k
+    _, Tg, C = moe_groups(cfg, T if tokens is None else tokens)
+    if T % Tg:
+        raise ValueError(f"{T} tokens are not whole groups of {Tg}")
+    G, E = T // Tg, p["wg"].shape[0]
     xt = x.reshape(G, Tg, d)
     gate, idx = route(p["router"], xt, k)                   # [G,Tg,k]
-    onehot = one_hot(idx, E)                                # [G,Tg,k,E]
+    # [G,Tg,k,E]: an expert outside the range gives a zero row
+    onehot = one_hot(idx - first_expert if first_expert else idx, E)
     pos_all = torch.cumsum(onehot.reshape(G, Tg * k, E), dim=1).reshape(
         G, Tg, k, E) - 1
     pos = (pos_all * onehot).sum(-1)                        # [G,Tg,k]

@@ -14,15 +14,19 @@ weight's dtype.  Decode caches (GQA's or MLA's, one group a stack) are
 updated in place.  MoE layers take the reference's dispatch: without a
 mesh in the :class:`ParallelCtx`, the grouped einsum or the one-shard
 expert-parallel form; with one, the expert-parallel form over the ranks
-(one process a rank).
+(one process a rank) or the grouped einsum on the reference's global
+groups.
 
 Under a mesh, the route of each leaf follows how the rank holds it
 (``parallel.sharding.tp_spec``): held as its block over 'model', GQA
-attention and the dense MLP run column- then row-parallel with one
-``psum`` each, the embedding looks up its vocab range and sums, and the
-unembedding computes its vocab block (gathered) or its ``d`` block's
-partial logits (summed); held whole, a leaf runs as on one card.  The MoE
-region receives ``h`` replicated over 'model', as before.
+attention, the dense MLP and an MoE layer's shared expert run column-
+then row-parallel with one ``psum`` each, the embedding looks up its
+vocab range and sums, and the unembedding computes its vocab block
+(gathered) or its ``d`` block's partial logits (summed); held as its
+slice of the experts, an expert stack runs those experts only and the
+layer's output is summed over the expert axes (:func:`_moe_einsum`); held
+whole, a leaf runs as on one card.  The MoE layer receives ``h``
+replicated over 'model'.
 """
 from __future__ import annotations
 
@@ -33,17 +37,19 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import default_device
 from ..parallel.collectives import all_gather, psum, pvary
-from ..parallel.sharding import (P, _axes, _axis_size, _fit_axis, dp_axes,
-                                 gather_shards, held_params, local_shard)
+from ..parallel.sharding import (P, _axes, _axis_size, _fit_axis,
+                                 block_index, dp_axes, gather_shards,
+                                 held_params, local_shard)
 from ..tree import leaves
 from .config import ArchConfig
 from .layers import (gqa_apply, gqa_params, mla_apply, mla_params,
                      mlp_apply, mlp_params, moe_einsum_apply, moe_ep_apply,
-                     moe_params, normal, rmsnorm)
+                     moe_groups, moe_params, normal, rmsnorm)
 
 #: the reference's literal: without a mesh, an ``ep_a2a`` MoE layer takes
 #: the expert-parallel form from this many tokens on (``MoEConfig``'s
@@ -65,13 +71,15 @@ class ParallelCtx:
     ep_size: int = 1
     mesh: Any = None
     dp_spec: Any = None      # partition spec entry for the batch dim
-    #: set by a train step under a mesh (``launch.steps``): the batch a
-    #: rank holds is its block of the global batch (dim 0 over the dp
-    #: axes), so the MoE region cuts tokens over 'model' only and
-    #: :func:`xent` divides by the global count of labels
+    #: set by a train step and by a serving step that cut the batch under
+    #: a mesh (``launch.steps``): the batch a rank holds is its block of
+    #: the global batch (dim 0 over the dp axes), so the MoE region cuts
+    #: tokens over 'model' only, the einsum form counts the global tokens
+    #: and :func:`xent` divides by the global count of labels
     dp_block: bool = False
     #: set by a train step under a mesh: the step updates what a rank
-    #: holds, so an expert stack must be the rank's slice
+    #: holds, so an expert stack must be the rank's slice in the
+    #: expert-parallel region and whole in the einsum form
     training: bool = False
 
 
@@ -264,6 +272,9 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
     * no mesh: the grouped einsum dispatch, except that ``impl="ep_a2a"``
       at ``EP_MIN_TOKENS`` tokens or more takes the expert-parallel form
       at one shard;
+    * a mesh where the expert-parallel form does not run: the grouped
+      einsum on the reference's global groups, with the rank's experts
+      (:func:`_moe_einsum`);
     * impl='ep_a2a' + mesh, at ``cfg.moe.ep_threshold`` tokens or more of
       the global batch and a sequence the 'model' axis divides: expert
       parallelism over ``_fit_axis(("data", "model"), E)``.  This rank
@@ -276,7 +287,8 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
       only the latter), runs the routed experts only, and the block
       outputs are all-gathered back to the rank's ``[B, S, d]``
       (GSPMD's ``out_specs``).  The shared expert is added outside the
-      region, on every rank.
+      region, on every rank (column- then row-parallel where the rank
+      holds its blocks over 'model').
 
     The backward is ``shard_map``'s transpose: the cuts and the gather
     transpose into each other, the all-to-alls into themselves, and a
@@ -292,14 +304,11 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
     B_global = B * _axis_size(mesh, dp_axes(mesh)) if blocked else B
     ep_axis = ep_axis_for(cfg, B_global, S, mesh)
     if ep_axis is None:
-        if blocked and pmoe["wg"].shape[0] != E:
-            raise ValueError(f"moe/wg: {pmoe['wg'].shape[0]} of {E} experts "
-                             f"where the einsum form needs them all")
         if cfg.moe.impl == "ep_a2a" and mesh is None \
                 and B * S >= EP_MIN_TOKENS:
             # large token count without a mesh: still exercise the EP path
             return moe_ep_apply(pmoe, h, cfg)
-        return moe_einsum_apply(pmoe, h, cfg)
+        return _moe_einsum(cfg, pmoe, h, ctx)
     ep_size = _axis_size(mesh, ep_axis)
     tok_spec = P(None if blocked else ctx.dp_spec, "model", None)
     tok_axes = set(_axes(tok_spec[0])) | {"model"}
@@ -333,8 +342,102 @@ def _moe_dispatch(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx] = None):
                        ep_axis=mesh.group(ep_axis), ep_size=ep_size)
     out = gather_shards(out, tok_spec, mesh)
     if cfg.moe.n_shared:
-        out = out + mlp_apply(pmoe["shared"], h, "swiglu")
+        held = _shared_held(cfg, pmoe)
+        out = out + mlp_apply(pmoe["shared"], h, "swiglu",
+                              _model_group(ctx) if held else None)
     return out
+
+
+def _shared_held(cfg: ArchConfig, pmoe) -> bool:
+    """Whether the rank holds the MoE layer's shared expert as its
+    column- and row-parallel blocks over 'model' (``tp_spec``)."""
+    mo = cfg.moe
+    return bool(mo.n_shared) and (
+        pmoe["shared"]["wg"].shape[-1] != mo.d_ff_expert * mo.n_shared)
+
+
+def _moe_einsum(cfg: ArchConfig, pmoe, h, ctx: Optional[ParallelCtx]):
+    """The grouped einsum form; under a mesh, the reference's function on
+    what the rank holds.
+
+    The groups and the capacity are the reference's, formed from the
+    global token count (``moe_groups``): the rank's ``B x S`` tokens times
+    the dp ranks that cut the batch, where ``ctx.dp_block`` says they do.
+    Tokens are batch-major, so the rank's block is a whole number of
+    global groups when the group size divides ``B x S``, and then it runs
+    its block as it is.  Otherwise, and wherever its experts are cut over
+    a dp axis (every rank's experts then take tokens from every dp
+    block), it all-gathers the blocks over the dp axes, runs the global
+    groups and keeps its own rows.
+
+    A rank holding its slice ``[E_loc, ...]`` of the expert stacks
+    (``tp_spec``: ``E`` over ``_fit_axis(("data", "model"), E)``) runs its
+    experts only, and its part of the combine is summed over the expert
+    axes.  A shared expert held as its blocks over 'model' gives a partial
+    output summed over 'model': it joins the routed part's ``psum`` where
+    that runs over 'model' too and each rank of the other expert axes
+    adds it at rows of its own, so a layer whose experts are cut over
+    'model' costs one all-reduce as a dense MLP does; otherwise it has a
+    ``psum`` of its own.  A train step (``ctx.training``) holds
+    the stacks whole.  Its backward: the gather's takes the rank's block
+    of the cotangent, and keeping the rank's rows passes its rows'
+    cotangent only, so each weight's gradient is the rank's part, which
+    the train step's exchange sums over the dp axes (a token's output
+    reads its own input only: the routing's drops are not
+    differentiated)."""
+    mesh = None if ctx is None else ctx.mesh
+    if mesh is None:
+        return moe_einsum_apply(pmoe, h, cfg)
+    mo = cfg.moe
+    B, S, _ = h.shape
+    E, e_loc = mo.n_experts, pmoe["wg"].shape[0]
+    dps = tuple(a for a in dp_axes(mesh) if mesh.shape[a] > 1) \
+        if ctx.dp_block else ()
+    n_dp = _axis_size(mesh, dps) if dps else 1
+    T = B * S * n_dp
+    _, Tg, _ = moe_groups(cfg, T)
+    first, e_axes = 0, ()
+    if e_loc != E:
+        if ctx.training:
+            raise ValueError(f"moe/wg: {e_loc} of {E} experts where the "
+                             f"einsum form of a train step needs them all")
+        entry = _fit_axis(("data", "model"), E, mesh)
+        if entry is None or e_loc * _axis_size(mesh, entry) != E:
+            raise ValueError(f"moe/wg: {e_loc} experts, neither {E} nor "
+                             f"this rank's slice under {entry}")
+        first = block_index(entry, mesh) * e_loc
+        e_axes = tuple(a for a in _axes(entry) if mesh.shape[a] > 1)
+    e_dp = any(a in dp_axes(mesh) for a in e_axes)
+    gather = bool(dps) and (e_dp or (B * S) % Tg != 0)
+    dp = P(dps if len(dps) > 1 else dps[0]) if dps else None
+    row0 = block_index(dp[0], mesh) * B if dps else 0
+
+    routed = {k: pmoe[k] for k in ("router", "wg", "wu", "wd")}
+    y = moe_einsum_apply(routed, gather_shards(h, dp, mesh) if gather else h,
+                         cfg.replace(moe=dataclasses.replace(mo, n_shared=0)),
+                         tokens=T, first_expert=first)
+    s = mlp_apply(pmoe["shared"], h, "swiglu") if mo.n_shared else None
+    held = _shared_held(cfg, pmoe)
+    # the shared expert's partial output joins the routed part's sum where
+    # that runs over 'model' and, over a dp axis, over rows each rank
+    # holds apart (the gathered batch); not where the batch is whole
+    fused = held and "model" in e_axes and (gather or not e_dp)
+    if gather and e_dp:
+        # every rank's experts over every block: summed over the whole
+        # gathered batch, the shared expert's part at the rank's rows
+        if fused:
+            y = y + F.pad(s, (0, 0, 0, 0, row0, y.shape[0] - row0 - B))
+        y = psum(y, mesh.group(e_axes)).narrow(0, row0, B)
+    else:
+        if gather:
+            y = y.narrow(0, row0, B)
+        if fused:
+            y = y + s
+        if e_axes:
+            y = psum(y, mesh.group(e_axes))
+    if s is None or fused:
+        return y
+    return y + (psum(s, _model_group(ctx)) if held else s)
 
 
 def _embed(cfg: ArchConfig, params, tokens, extra_embeds=None,

@@ -25,9 +25,9 @@ differentiable with ``shard_map``'s transpose rule.
 How a rank holds each leaf (the reference leaves that to GSPMD, which
 reads it from the jitted step's argument shardings; the port reads it
 from the tensors): :func:`tp_spec` is the rule of tensor-parallel
-serving, :func:`held_params` cuts a whole tree by it, :func:`held_specs`
-reads each leaf's spec back from its shape (an expert stack's slice
-too), and :func:`cache_block` allocates a rank's decode caches.
+serving (the expert stacks' slices too), :func:`held_params` cuts a
+whole tree by it, :func:`held_specs` reads each leaf's spec back from
+its shape, and :func:`cache_block` allocates a rank's decode caches.
 """
 from __future__ import annotations
 
@@ -297,20 +297,25 @@ def to_placements(tree_specs: PyTree, mesh) -> PyTree:
         (), tree_specs)
 
 
+def block_index(entry, mesh) -> int:
+    """This rank's index over a spec entry's axes, major to minor: which
+    of their ``_axis_size`` blocks of a dim it holds."""
+    idx = 0
+    for a in _axes(entry):
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+    return idx
+
+
 def _cut(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     for d, entry in enumerate(spec):
-        axes = _axes(entry)
-        if not axes:
+        if not _axes(entry):
             continue
         n = _axis_size(mesh, entry)
         if t.shape[d] % n:
             raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
                              f"over {entry} ({n} ranks)")
-        idx = 0
-        for a in axes:
-            idx = idx * mesh.shape[a] + mesh.coords[a]
         size = t.shape[d] // n
-        t = t.narrow(d, idx * size, size)
+        t = t.narrow(d, block_index(entry, mesh) * size, size)
     return t
 
 
@@ -376,10 +381,12 @@ def gather_shards(block: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 
 # ------------------------------------------------ how a rank holds a leaf
 #: the decoder family's leaves that tensor-parallel serving holds by their
-#: spec over 'model': GQA attention, the dense MLPs, the (un)embedding
+#: spec: GQA attention, the dense MLPs, an MoE layer's shared expert and
+#: the (un)embedding over 'model', the routed expert stacks over their
+#: expert axes
 _TP_LEAF = re.compile(r"^(embed|unembed)$|(^|/)attn/(w[qkvo]|b[qkv])$"
-                      r"|(^|/)mlp/w[gud12]$")
-#: an MoE layer's routed expert stacks (the expert-parallel region's)
+                      r"|(^|/)(mlp|shared)/w[gud12]$|(^|/)moe/w[gud]$")
+#: an MoE layer's routed expert stacks
 _EXPERTS = re.compile(r"moe/w[gud]$")
 
 
@@ -428,15 +435,16 @@ def kv_heads_held(cfg, mesh) -> range:
 
 def tp_spec(cfg, path: str, shape, mesh) -> P:
     """The spec tensor-parallel serving holds leaf ``path`` (of global
-    ``shape``) by on ``mesh``: ``spec_for_param``'s, over 'model' only,
-    for the decoder family's GQA attention where its heads split
-    (:func:`heads_split`), its dense MLPs and its (un)embedding; ``P()``
-    (whole) for every other leaf: norms, routers, an MoE layer's experts
-    (the expert-parallel region's own rule, :func:`held_specs`) and
-    shared expert, MLA attention, and every leaf of the other families.
-    The embedding ``[V, d]`` is cut over the vocab where ``m`` divides it
-    (not internvl2-26b's 92,553); the untied unembedding ``[d, V]``, which
-    the rule ``embed$`` matches first, over ``d``."""
+    ``shape``) by on ``mesh``: ``spec_for_param``'s for the decoder
+    family's GQA attention where its heads split (:func:`heads_split`),
+    its dense MLPs, an MoE layer's shared expert and its (un)embedding,
+    over 'model', and for an MoE layer's routed expert stacks, ``E`` over
+    ``_fit_axis(("data", "model"), E)`` (one rule, whether the einsum or
+    the expert-parallel form runs them); ``P()`` (whole) for every other
+    leaf: norms, routers, MLA attention, and every leaf of the other
+    families.  The embedding ``[V, d]`` is cut over the vocab where ``m``
+    divides it (not internvl2-26b's 92,553); the untied unembedding ``[d,
+    V]``, which the rule ``embed$`` matches first, over ``d``."""
     if not (tensor_parallel(cfg) and _TP_LEAF.search(path)):
         return P()
     if "attn/" in path and (cfg.mla is not None or not heads_split(
@@ -479,11 +487,10 @@ def param_shapes(model) -> list:
 def held_specs(model, params, mesh, shapes: list) -> list:
     """The spec of each leaf of ``params`` (in the order of
     :func:`~repro_torch.tree.leaves`) as this rank holds it, read from its
-    shape against the global one (``shapes``, :func:`param_shapes`'): ``P()`` for a whole leaf; an expert stack held as its
-    ``[L, E/ep, ...]`` slice, its storage spec (``param_specs``'); any
-    other leaf held as a slice, its :func:`tp_spec`.  A leaf that is
-    neither whole nor the slice its rule gives is refused, the error
-    naming it."""
+    shape against the global one (``shapes``, :func:`param_shapes`'):
+    ``P()`` for a whole leaf, its :func:`tp_spec` for one held as a slice
+    (an expert stack's ``[L, E/ep, ...]`` too).  A leaf that is neither
+    whole nor the slice its rule gives is refused, the error naming it."""
     from ..tree import leaves
 
     out = []
@@ -491,8 +498,7 @@ def held_specs(model, params, mesh, shapes: list) -> list:
         if tuple(t.shape) == shape:
             out.append(P())
             continue
-        spec = (spec_for_param(path, shape, mesh) if _EXPERTS.search(path)
-                else tp_spec(model.cfg, path, shape, mesh))
+        spec = tp_spec(model.cfg, path, shape, mesh)
         if held_shape(shape, spec, mesh) != tuple(t.shape):
             raise ValueError(f"{path}: held as {tuple(t.shape)}, neither "
                              f"whole {shape} nor its slice under {spec} "

@@ -123,19 +123,18 @@ def test_run_cell_walks_each_family_at_a_stand_in_mesh(smoke, arch):
         else:
             # a serving step: the logits of the rank's rows gathered over
             # 'data' (its bf16 [B/2, V] at the last position), and in the
-            # decoder family the row-parallel sums over 'model' (each
-            # layer's attention and dense MLP, the vocab-parallel
-            # embedding's lookup and an untied unembedding's partial
-            # logits: deepseek's MLA layers hold their attention whole,
-            # and its MoE layer no dense MLP)
+            # decoder family the row-parallel sums (each layer's attention
+            # and its dense MLP or MoE combine over its experts' axes, the
+            # vocab-parallel embedding's lookup and an untied
+            # unembedding's partial logits: deepseek's MLA layers hold
+            # their attention whole)
             counts = rec["collectives"]["counts"]
             assert counts["all-to-all"] == 0
             B = sspec.global_batch
             assert coll["all-gather"] >= B // 2 * cfg.vocab * 2
             tp = arch in ("llama3.2-1b", "granite-moe-1b-a400m",
                           "internvl2-26b", "deepseek-v3-671b")
-            moe = (cfg.n_layers - cfg.n_dense_layers) if cfg.moe else 0
-            want = (cfg.n_layers * (1 if cfg.mla else 2) - moe + 1
+            want = (cfg.n_layers * (1 if cfg.mla else 2) + 1
                     + (not cfg.tie_embeddings) if tp else 0)
             assert counts["all-reduce"] == want, (counts, want)
 
@@ -300,33 +299,51 @@ def _bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
-def test_serving_cell_holds_its_params_by_their_specs(shape):
-    """llama3.2-1b's serving cells at full size on the 256-rank stand-in:
-    rank 0 holds its params as tensor-parallel serving cuts them, within
-    1% of ``by_specs``' params (byte for byte here: every leaf's spec cuts
-    over 'model' only), and the walk records one all-reduce of the rank's
-    ``[B/16, S, d]`` bf16 activations for each row-parallel sum (each
-    layer's attention and MLP, the vocab-parallel embedding's lookup).
-    ``argument_bytes`` is those params, the global batch and the rank's
-    cache block (its 8 of 128 rows and the one kv head its two query heads
-    read, twice ``by_specs``' caches, which cut the head dim instead)."""
+@pytest.mark.parametrize("arch, shape", [
+    pytest.param("llama3.2-1b", "prefill_32k", id="prefill_32k"),
+    pytest.param("llama3.2-1b", "decode_32k", id="decode_32k"),
+    pytest.param("granite-moe-1b-a400m", "decode_32k",
+                 id="granite-moe-1b-a400m-decode_32k")])
+def test_serving_cell_holds_its_params_by_their_specs(arch, shape):
+    """A serving cell at full size on the 256-rank stand-in: rank 0 holds
+    its params as tensor-parallel serving cuts them, within 1% of
+    ``by_specs``' params (byte for byte here: every leaf's spec cuts over
+    'model' only, granite's 32 experts two a rank), and the walk records
+    one all-reduce of the rank's ``[B/16, S, d]`` bf16 activations for
+    each row-parallel sum (each layer's attention and MLP or MoE combine,
+    llama3.2-1b's vocab-parallel embedding lookup).  granite-moe-1b-a400m
+    decodes 128 rows, one global group of the einsum form, so each MoE
+    layer also all-gathers the 16 data blocks' tokens; its 8 kv heads over
+    16 'model' ranks are gathered too, and its vocabulary of 49,155 rows
+    is held whole.  ``argument_bytes`` is those params, the global batch
+    and the rank's cache block (its 8 of 128 rows and the one kv head its
+    query heads read, twice ``by_specs``' caches for llama3.2-1b, which
+    cut the head dim instead)."""
     mesh = dryrun.make_dry_mesh(False)
-    cfg, _, args, by_specs = dryrun.build_cell("llama3.2-1b", shape, mesh)
+    cfg, _, args, by_specs = dryrun.build_cell(arch, shape, mesh)
     held = _bytes(args[0])
     assert abs(held - by_specs["params"]) <= 0.01 * by_specs["params"]
     assert held == by_specs["params"]
-    rec = dryrun.run_cell("llama3.2-1b", shape, False, save=False)
+    rec = dryrun.run_cell(arch, shape, False, save=False)
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["memory"]["argument_bytes"] == sum(_bytes(a) for a in args)
     sspec = dryrun.SHAPES[shape]
     S = 1 if sspec.kind == "decode" else sspec.seq_len
     rows = sspec.global_batch // mesh.shape["data"]
     coll = rec["collectives"]
-    assert coll["counts"]["all-reduce"] == 2 * cfg.n_layers + 1
-    assert coll["bytes"]["all-reduce"] == (2 * cfg.n_layers + 1) * (
+    L, m = cfg.n_layers, mesh.shape["model"]
+    embed = 0 if cfg.moe else 1         # granite's vocabulary is whole
+    assert coll["counts"]["all-reduce"] == 2 * L + embed
+    assert coll["bytes"]["all-reduce"] == (2 * L + embed) * (
         rows * S * cfg.d_model * 2)
-    if sspec.kind == "decode":
+    if cfg.moe:
+        assert args[0]["moe_layers"]["moe"]["wg"].shape[1] == 2
+        kv = rows * S * cfg.n_kv_heads * cfg.hd() // m * 2
+        assert coll["counts"]["all-gather"] == L + 2 * L + 1
+        assert coll["bytes"]["all-gather"] == (
+            L * rows * S * cfg.d_model * 2 + 2 * L * kv
+            + rows * cfg.vocab * 2)
+    if sspec.kind == "decode" and not cfg.moe:
         cache = args[1]["dense"]["k"]
         assert tuple(cache.shape) == (cfg.n_layers, rows, sspec.seq_len, 1,
                                       cfg.hd())

@@ -22,15 +22,29 @@ smoke configs, f32, B=4, S=32.  The cases:
   divide (the embedding whole, as at full width), the untied unembedding
   held over ``d`` (partial logits summed), the patch prefix;
 * granite-moe-1b-a400m on (2,2), prefill: tensor-parallel attention
-  beside the MoE layer (its einsum form on the rank's rows).
+  beside the MoE layer;
+* at capacity 1.25, the full configs' own (both packages' smoke configs
+  set 4.0, at which nothing drops and the grouping changes nothing):
+  granite-moe-1b-a400m on (2,2) with the cached prefill and decode, its 4
+  experts one a rank over data x model, so each rank gathers the tokens
+  of both data blocks and runs the reference's global groups; the same
+  on (1,4), prefill, one expert a rank over 'model'; deepseek-v3-671b on
+  (2,2) with decode (MLA held whole, its shared expert column- and
+  row-parallel, one routed expert a rank); deepseek-v3-671b with 6
+  experts on (1,4), prefill: 'model' does not divide the experts, so each
+  rank holds them whole beside its blocks of the shared expert, whose
+  partial output is summed over 'model' alone.
 
 The last logits at prefill and at each decode step are held within 2e-5
 of the largest absolute logit, each rank's held shapes against the
-shapes the reference's specs give its shard, and a train step handed a
-sliced leaf raises and names the leaf.
+shapes the reference's specs give its shard, a prefill of 3 rows (which
+the data ranks do not divide) against the reference's prefill step on
+one device, and a train step handed a sliced leaf raises and names the
+leaf.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -59,17 +73,36 @@ RANKS = 4
 B, S, STEPS = 4, 32, 3
 TOL = 2e-5                      # of the largest absolute logit
 LLAMA, VLM, GRANITE = "llama3.2-1b", "internvl2-26b", "granite-moe-1b-a400m"
+DEEPSEEK = "deepseek-v3-671b"
 CASES = {
     "llama_1x4": dict(arch=LLAMA, mesh=(1, 4), decode=True),
     "llama_2x2": dict(arch=LLAMA, mesh=(2, 2), decode=True),
     "internvl_2x2": dict(arch=VLM, mesh=(2, 2), decode=True, vocab=251),
     "granite_2x2": dict(arch=GRANITE, mesh=(2, 2), decode=False),
+    # capacity 1.25: at the smoke configs' 4.0 no slot drops, so groups
+    # formed from a rank's own token count would go unnoticed
+    "granite_cf_2x2": dict(arch=GRANITE, mesh=(2, 2), decode=True, cf=1.25),
+    "granite_cf_1x4": dict(arch=GRANITE, mesh=(1, 4), decode=False,
+                           cf=1.25),
+    "deepseek_cf_2x2": dict(arch=DEEPSEEK, mesh=(2, 2), decode=True,
+                            cf=1.25),
+    # 6 experts, which 'model' 4 does not divide: held whole
+    "deepseek_e6_1x4": dict(arch=DEEPSEEK, mesh=(1, 4), decode=False,
+                            cf=1.25, experts=6),
 }
+#: the case whose first ``ODD_ROWS`` rows each rank also runs whole
+ODD, ODD_ROWS = "deepseek_cf_2x2", 3
 
 
 def _rcfg(case: dict):
     cfg = rconfigs.REGISTRY[case["arch"]].smoke_config()
-    return cfg.replace(vocab=case["vocab"]) if "vocab" in case else cfg
+    if "vocab" in case:
+        cfg = cfg.replace(vocab=case["vocab"])
+    if "cf" in case:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=case["cf"],
+            n_experts=case.get("experts", cfg.moe.n_experts)))
+    return cfg
 
 
 def _flat(tree, prefix=""):
@@ -130,7 +163,7 @@ def _batch(data: dict, name: str) -> dict:
 REFERENCE = """
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-import json
+import dataclasses, json
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType, NamedSharding, PartitionSpec
 from repro import configs
@@ -179,6 +212,10 @@ for name, case in opt["cases"].items():
     cfg = configs.REGISTRY[case["arch"]].smoke_config()
     if "vocab" in case:
         cfg = cfg.replace(vocab=case["vocab"])
+    if "cf" in case:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=case["cf"],
+            n_experts=case.get("experts", cfg.moe.n_experts)))
     mesh = jax.make_mesh(tuple(case["mesh"]), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     model = build_model(cfg)
@@ -195,6 +232,10 @@ for name, case in opt["cases"].items():
     replicated = NamedSharding(mesh, PartitionSpec())
     prefill = jax.jit(rsteps.make_prefill_step(model, ctx),
                       in_shardings=(pn, bn), out_shardings=replicated)
+    if name == opt["odd"]:
+        # the first rows on one device, no mesh
+        out["odd_batch"] = np.asarray(jax.jit(rsteps.make_prefill_step(
+            model))(params, {"tokens": batch["tokens"][:opt["odd_rows"]]}))
     params, batch = jax.device_put((params, batch), (pn, bn))
     out[f"{name}:prefill"] = np.asarray(prefill(params, batch))
     if not case["decode"]:
@@ -245,7 +286,8 @@ def ref_run(inputs):
     subprocess that works while the port's ranks run."""
     in_path, _ = inputs
     out_path = in_path.with_name("reference.npz")
-    opt = json.dumps({"cases": CASES, "B": B, "S": S, "steps": STEPS})
+    opt = json.dumps({"cases": CASES, "B": B, "S": S, "steps": STEPS,
+                      "odd": ODD, "odd_rows": ODD_ROWS})
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "JAX_PLATFORMS": "cpu"}
     with open(in_path.with_name("reference.log"), "w+") as log:
@@ -299,7 +341,10 @@ def _rank(device, data):
             if case["decode"]:
                 caches = sharding.cache_block(model, B, S + STEPS + 1,
                                               torch.float32, "cpu", mesh)
-                r["cache"] = tuple(caches["dense"]["k"].shape)
+                r["cache"] = {f"{g}/{k}": tuple(v.shape)
+                              for g, c in caches.items()
+                              for k, v in c.items()
+                              if isinstance(v, torch.Tensor)}
                 logits, caches = steps.make_cache_prefill_step(model, ctx)(
                     params, caches, batch)
                 r["cached"] = logits.numpy()
@@ -311,6 +356,19 @@ def _rank(device, data):
                                             {"tokens1": tok, "pos": S + i})
                     r["decode"].append(logits.numpy())
         res[name] = r
+    # rows which the 2 data ranks do not divide: every rank holds the
+    # batch whole, so its expert slice's combine is summed over (data,
+    # model) and the shared expert's partial output over 'model' alone
+    whole, cfg = convert.params_from_reference(
+        _params(data, ODD), _rcfg(CASES[ODD]), device="cpu")
+    mesh = meshes[tuple(CASES[ODD]["mesh"])]
+    batch = {"tokens": torch.from_numpy(
+        data[f"{ODD}:tokens"][:ODD_ROWS]).long()}
+    with torch.no_grad():
+        step = steps.make_prefill_step(build_model(cfg), ParallelCtx(
+            mesh=mesh, dp_spec="data"))
+        res["odd_batch"] = step(sharding.held_params(cfg, whole, mesh),
+                                batch).numpy()
     return res
 
 
@@ -349,13 +407,17 @@ def test_serving_steps_match_the_references_sharded_steps(ref, port, name):
 @pytest.mark.parametrize("name", list(CASES))
 def test_held_shapes_are_the_references_shards(inputs, ref, port, name):
     """A leaf the rank holds as a block has the shape of the reference's
-    shard under ``param_specs`` (its spec over 'model'), and ``held_specs``
-    reads that spec back; every other leaf is whole.  In llama3.2-1b every
-    attention, MLP and vocabulary leaf is a block; in internvl2-26b the
-    embedding, whose 251 rows 'model' does not divide, is whole and the
-    unembedding a block of ``d``.  The cache block holds the reference's
-    rows of the batch and the kv heads the rank's attention reads (one,
-    where the reference cuts the head dim)."""
+    shard under ``param_specs`` (its spec over 'model', an expert stack's
+    over data x model), and ``held_specs`` reads that spec back; every
+    other leaf is whole.  In llama3.2-1b every attention, MLP and
+    vocabulary leaf is a block; in internvl2-26b the embedding, whose 251
+    rows 'model' does not divide, is whole and the unembedding a block of
+    ``d``; in the MoE models every expert stack and shared-expert leaf is
+    a block where the mesh divides the experts (not 6 over 'model' 4), and
+    deepseek's MLA attention whole.  The cache block holds
+    the reference's rows of the batch and the kv heads the rank's
+    attention reads (one, where the reference cuts the head dim), an MLA
+    latent cache its rows of the whole."""
     _, data = inputs
     case = CASES[name]
     cfg = convert.config_from_reference(_rcfg(case))
@@ -368,7 +430,12 @@ def test_held_shapes_are_the_references_shards(inputs, ref, port, name):
             if spec:
                 cut.add(path)
                 assert shape == tuple(ref[f"{name}:shard:{path}"]), path
-                assert "model" in spec and "data" not in spec, (path, spec)
+                if sharding._EXPERTS.search(path):
+                    assert spec == (None, ("data", "model"), None, None), (
+                        path, spec)
+                else:
+                    assert "model" in spec and "data" not in spec, (path,
+                                                                    spec)
             else:
                 assert shape == whole[path], path
         tp = {p for p in whole if sharding._TP_LEAF.search(p)}
@@ -376,14 +443,38 @@ def test_held_shapes_are_the_references_shards(inputs, ref, port, name):
             assert cut == tp
         elif case["arch"] == VLM:
             assert cut == tp - {"embed"} and "unembed" in cut
+        elif case["arch"] == GRANITE:
+            assert cut == tp and {"moe_layers/moe/wg", "moe_layers/moe/wu",
+                                  "moe_layers/moe/wd"} <= cut
         else:
-            assert cut == tp and not any("moe/" in p for p in cut)
+            want = {p for p in tp if "/attn/" not in p}
+            if "experts" in case:
+                want = {p for p in want if not sharding._EXPERTS.search(p)}
+            assert cut == want and "moe_layers/moe/shared/wd" in cut
         if case["decode"]:
-            rows = tuple(ref[f"{name}:cache:dense/k"])
             m = case["mesh"][1]
             heads = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else 1
-            assert res[name]["cache"] == (cfg.n_layers, rows[1], S + STEPS + 1,
-                                          heads, cfg.hd()), r
+            total = S + STEPS + 1
+            full = build_model(cfg).init_cache(B, total, torch.float32,
+                                               "meta")
+            held = res[name]["cache"]
+            assert held, r
+            for key, shape in held.items():
+                g, leaf = key.split("/")
+                glob = tuple(full[g][leaf].shape)
+                rows = tuple(ref[f"{name}:cache:{key}"])[1]
+                rest = (heads, cfg.hd()) if leaf in ("k", "v") else glob[3:]
+                assert shape == (glob[0], rows, total) + rest, (r, key)
+
+
+def test_a_batch_the_data_ranks_do_not_divide_matches_one_rank(ref, port):
+    """deepseek smoke at capacity 1.25 on (2,2) with 3 rows: every rank
+    holds the whole batch and its one routed expert, and its prefill step
+    returns the logits of the reference's prefill step on one device
+    within ``TOL``."""
+    for r, res in enumerate(port):
+        _close(res["odd_batch"], ref["odd_batch"],
+               f"rank {r} {ODD_ROWS} rows")
 
 
 def test_a_train_step_refuses_a_sliced_leaf():

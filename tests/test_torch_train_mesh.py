@@ -9,15 +9,22 @@ shardings of ``dryrun.build_cell`` (``param_specs``,
 ``jax.value_and_grad(model.loss)`` once; its ``apply_updates`` is wrapped
 to hand out the gradient each step updates with.  One ``run_ranks`` of
 4 forked gloo ranks runs the port's step at the same time, each rank
-holding the params whole but for the expert stacks, which it holds as
-its slice.  Every input is drawn from one NumPy seed.  The cases:
+holding the params whole but for the expert stacks of the
+expert-parallel region, which it holds as its slice.  Every input is drawn from one NumPy seed.  The cases:
 
 * llama3.2-1b smoke on a (4,1) mesh, B=8 S=32, with ``-1`` labels spread
   unevenly over the ranks' rows (one rank's rows all ``-1``); the same at
   ``microbatches=2``;
 * deepseek-v3-671b smoke on a (2,2) mesh at ``ep_threshold=64`` (B=2
   S=64: the expert-parallel region over ``("data", "model")``, one
-  expert a rank), at capacity factor 4.0 (drop-free) and 1.0 (dropping).
+  expert a rank), at capacity factor 4.0 (drop-free) and 1.0 (dropping);
+* granite-moe-1b-a400m smoke on a (2,2) mesh, B=4 S=32, at capacity
+  1.25 (its full config's own; the smoke config's 4.0 drops nothing):
+  the einsum form on the experts held whole, on a data block of 64
+  tokens that is not a whole number of the global batch's one group of
+  128, so each rank gathers both blocks, runs the reference's group and
+  keeps its rows; its params after the steps held against the same
+  steps on one rank of the port.
 
 Each holds the loss within rtol 1e-5 at each of 2 steps and every
 gradient leaf within 1e-5 of its largest absolute value at the first
@@ -65,6 +72,7 @@ GRAD_TOL_LATER = 1e-4           # the second step's (see the test)
 BF16_STEP = 2.0 ** -7           # one bf16 rounding step, relative
 UPDATE_RTOL = 1e-4              # of the norm of a leaf's update
 LLAMA, DEEPSEEK = "llama3.2-1b", "deepseek-v3-671b"
+GRANITE = "granite-moe-1b-a400m"
 EXPERT_SPEC = P(None, ("data", "model"), None, None)
 CASES = {
     "llama": dict(arch=LLAMA, mesh=(4, 1), B=8, S=32, mb=1, vg=True),
@@ -73,7 +81,18 @@ CASES = {
                          ep_threshold=64),
     "deepseek_cf1": dict(arch=DEEPSEEK, mesh=(2, 2), B=2, S=64, cf=1.0,
                          ep_threshold=64),
+    # one_rank: the params after the steps held against the port's own
+    # steps on one rank (no mesh), see the test
+    "granite_cf": dict(arch=GRANITE, mesh=(2, 2), B=4, S=32, cf=1.25,
+                       one_rank=True),
 }
+ONE_RANK = [name for name, case in CASES.items() if case.get("one_rank")]
+
+
+def _sliced(case: dict) -> bool:
+    """Whether the case's MoE layers take the expert-parallel region,
+    whose expert stacks a rank holds as its slice."""
+    return "ep_threshold" in case
 
 
 def _rcfg(case: dict):
@@ -81,7 +100,7 @@ def _rcfg(case: dict):
     if "cf" in case:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["cf"],
-            ep_threshold=case["ep_threshold"]))
+            ep_threshold=case.get("ep_threshold", cfg.moe.ep_threshold)))
     return cfg
 
 
@@ -110,7 +129,8 @@ def _inputs() -> dict:
     split the pattern lands on other ranks."""
     rng = np.random.default_rng(31)
     out = {}
-    for arch in (LLAMA, DEEPSEEK):
+
+    def draw_params(arch):
         cfg = rconfigs.REGISTRY[arch].smoke_config()
         shapes = jax.eval_shape(lambda: ref_build(cfg).init(
             jax.random.PRNGKey(0), jax.numpy.float32))
@@ -119,6 +139,9 @@ def _inputs() -> dict:
             x = (rng.standard_normal(shape) / np.sqrt(shape[-2])
                  if len(shape) >= 2 else 1 + 0.1 * rng.standard_normal(shape))
             out[f"{arch}:{path}"] = x.astype(np.float32)
+
+    for arch in (LLAMA, DEEPSEEK):
+        draw_params(arch)
     for name, case in CASES.items():
         vocab = rconfigs.REGISTRY[case["arch"]].smoke_config().vocab
         B, S = case["B"], case["S"]
@@ -134,6 +157,8 @@ def _inputs() -> dict:
                 labels[0, 3:40] = -1
             out[f"{name}:{step}:tokens"] = toks[:, :-1].copy()
             out[f"{name}:{step}:labels"] = labels
+    # last, so that the other cases' draws stay as they were
+    draw_params(GRANITE)
     return out
 
 
@@ -200,7 +225,7 @@ for name, case in opt["cases"].items():
     if "cf" in case:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=case["cf"],
-            ep_threshold=case["ep_threshold"]))
+            ep_threshold=case.get("ep_threshold", cfg.moe.ep_threshold)))
     mesh = jax.make_mesh(tuple(case["mesh"]), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     model = build_model(cfg)
@@ -236,7 +261,7 @@ for name, case in opt["cases"].items():
         out[f"{name}:{i}:loss"] = np.asarray(loss)
         flat(grads, f"{name}:{i}:grad")
     flat(params, f"{name}:params")
-    if "cf" in case:
+    if "ep_threshold" in case:
         # the routing at the MoE layer's input (the first step's params,
         # no mesh): embed, the dense layer, the MoE layer's attention
         p0 = nest(case["arch"])
@@ -314,7 +339,8 @@ def _held(params: dict, mesh) -> dict:
 
 def _rank(device, data):
     """One rank: each case's steps, the gradient each updates with, the
-    params after them, and (deepseek) the first forward's routing."""
+    params after them, and (deepseek) the first forward's routing; a
+    ``one_rank`` case's steps also with no mesh."""
     torch.set_num_threads(1)
     meshes = {shape: Mesh(shape, ("data", "model"), device=device)
               for shape in sorted({tuple(c["mesh"]) for c in CASES.values()})}
@@ -337,40 +363,47 @@ def _rank(device, data):
                         "dropped": rec["dropped"]})
         return out
 
+    def run(name, case, mesh):
+        params, pcfg = convert.params_from_reference(
+            _params(data, case["arch"]), _rcfg(case), device="cpu")
+        if mesh is None:
+            ctx = ParallelCtx()
+        else:
+            if _sliced(case):
+                params = _held(params, mesh)
+            ctx = ParallelCtx(ep_axis="model", ep_size=mesh.shape["model"],
+                              mesh=mesh, dp_spec="data")
+        model = build_model(pcfg)
+        ocfg = optim.AdamWConfig(**OPT)
+        state = optim.init_state(ocfg, params)
+        batches = [{k: torch.from_numpy(v).long()
+                    for k, v in _batch(data, name, i).items()}
+                   for i in range(STEPS)]
+        r = {}
+        if case.get("vg"):
+            loss, grads = steps.value_and_grad(model, params, batches[0],
+                                               ctx)
+            r["vg"] = (float(loss), [g.numpy() for g in leaves(grads)])
+        step = steps.make_train_step(model, ocfg, ctx,
+                                     microbatches=case.get("mb", 1))
+        captured.clear()
+        routing.clear()
+        r["losses"] = []
+        for b in batches:
+            params, state, loss = step(params, state, b)
+            r["losses"].append(float(loss))
+        r["grads"] = list(captured)
+        r["params"] = [p.numpy() for p in leaves(params)]
+        r["routing"] = routing[0] if routing else None
+        return r
+
     steps.apply_updates = capturing
     transformer.moe_ep_apply = recording
     try:
         for name, case in CASES.items():
-            mesh = meshes[tuple(case["mesh"])]
-            rcfg = _rcfg(case)
-            params, pcfg = convert.params_from_reference(
-                _params(data, case["arch"]), rcfg, device="cpu")
-            params = _held(params, mesh)
-            model = build_model(pcfg)
-            ocfg = optim.AdamWConfig(**OPT)
-            state = optim.init_state(ocfg, params)
-            ctx = ParallelCtx(ep_axis="model", ep_size=mesh.shape["model"],
-                              mesh=mesh, dp_spec="data")
-            batches = [{k: torch.from_numpy(v).long()
-                        for k, v in _batch(data, name, i).items()}
-                       for i in range(STEPS)]
-            r = {}
-            if case.get("vg"):
-                loss, grads = steps.value_and_grad(model, params, batches[0],
-                                                   ctx)
-                r["vg"] = (float(loss), [g.numpy() for g in leaves(grads)])
-            step = steps.make_train_step(model, ocfg, ctx,
-                                         microbatches=case.get("mb", 1))
-            captured.clear()
-            routing.clear()
-            r["losses"] = []
-            for b in batches:
-                params, state, loss = step(params, state, b)
-                r["losses"].append(float(loss))
-            r["grads"] = list(captured)
-            r["params"] = [p.numpy() for p in leaves(params)]
-            r["routing"] = routing[0] if routing else None
-            res[name] = r
+            res[name] = run(name, case, meshes[tuple(case["mesh"])])
+            if case.get("one_rank"):
+                res[name]["one_rank"] = run(name, case, None)
     finally:
         steps.apply_updates = orig_update
         transformer.moe_ep_apply = orig_ep
@@ -392,7 +425,7 @@ def _want_leaves(ref: dict, key: str, rank: int, case: dict) -> list:
     out = []
     for k in names:
         w = ref[k]
-        if "cf" in case and k.endswith(("/moe/wg", "/moe/wu", "/moe/wd")):
+        if _sliced(case) and k.endswith(("/moe/wg", "/moe/wu", "/moe/wd")):
             n = w.shape[1] // RANKS
             w = w[:, rank * n:(rank + 1) * n]
         out.append(w)
@@ -408,6 +441,28 @@ def _close_grads(got: list, want: list, what: str, tol: float):
                                    err_msg=f"{what} leaf {i}")
 
 
+@pytest.mark.parametrize("name", ONE_RANK)
+def test_einsum_train_step_under_a_mesh_matches_one_rank(inputs, port, name):
+    """The params after the einsum form's steps under a mesh, on every
+    rank, within ``UPDATE_RTOL`` of the update's norm from the same steps
+    on one rank of the port.  Not the reference's params: the port's one
+    rank is already 2.3e-4 of the update away from those in ``moe/wg``,
+    as AdamW's ``m / sqrt(v)`` turns the packages' rounding in near-zero
+    gradients into up to ``lr``; the loss and the gradients are held
+    against the reference's sharded step in
+    ``test_train_step_under_a_mesh_matches_reference``."""
+    _, data = inputs
+    start = [np.asarray(v) for v in leaves(convert.params_from_reference(
+        _params(data, CASES[name]["arch"]), _rcfg(CASES[name]),
+        device="cpu")[0])]
+    for r, res in enumerate(port):
+        got, want = res[name], res[name]["one_rank"]
+        for j, (g, w, p0) in enumerate(zip(got["params"], want["params"],
+                                           start, strict=True)):
+            gap = np.linalg.norm(g - w) / np.linalg.norm(w - p0)
+            assert gap <= UPDATE_RTOL, (name, r, j, gap)
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_train_step_under_a_mesh_matches_reference(inputs, ref, port, name):
     """The loss at each step within ``LOSS_RTOL``; every gradient leaf of
@@ -419,7 +474,8 @@ def test_train_step_under_a_mesh_matches_reference(inputs, ref, port, name):
     AdamW's ``m / sqrt(v)`` turns into up to ``lr`` in an element whose
     gradient is near zero: hence the looser second step, and the params
     held in the norm (as ``chip_smoke.py``'s ``TRAIN_STATE_RTOL`` holds
-    them).  At ``microbatches=2`` the gradient that updates is the
+    them; a ``one_rank`` case's against the port's one rank, in
+    ``test_einsum_train_step_under_a_mesh_matches_one_rank``).  At ``microbatches=2`` the gradient that updates is the
     reference's bf16 accumulation, which rounds each element at the scale
     of its microbatch terms: where the packages' f32 terms straddle a
     rounding boundary an element moves by a bf16 step of those terms, so
@@ -440,13 +496,15 @@ def test_train_step_under_a_mesh_matches_reference(inputs, ref, port, name):
                          f"{name} rank {r} step {i}",
                          BF16_STEP if bf16 else
                          GRAD_TOL if i == 0 else GRAD_TOL_LATER)
-        want = _want_leaves(ref, f"{name}:params", r, case)
-        start = _want_leaves({f"p0/{k}": v for k, v in _flat(_params(
-            data, case["arch"])).items()}, "p0", r, case)
-        assert len(got["params"]) == len(want) == len(start)
-        for j, (g, w, p0) in enumerate(zip(got["params"], want, start)):
-            gap = np.linalg.norm(g - w) / np.linalg.norm(w - p0)
-            assert gap <= UPDATE_RTOL, (name, r, j, gap)
+        if not case.get("one_rank"):    # held against one rank instead
+            want = _want_leaves(ref, f"{name}:params", r, case)
+            start = _want_leaves({f"p0/{k}": v for k, v in _flat(_params(
+                data, case["arch"])).items()}, "p0", r, case)
+            assert len(got["params"]) == len(want) == len(start)
+            for j, (g, w, p0) in enumerate(zip(got["params"], want,
+                                               start)):
+                gap = np.linalg.norm(g - w) / np.linalg.norm(w - p0)
+                assert gap <= UPDATE_RTOL, (name, r, j, gap)
         if case.get("vg"):
             loss, grads = got["vg"]
             np.testing.assert_allclose(loss, ref[f"{name}:vg:loss"],
